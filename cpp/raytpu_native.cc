@@ -1,6 +1,6 @@
 // Native runtime components for raytracer_tpu (C API, loaded via ctypes).
 //
-// The reference renderer is compiled Go throughout; the TPU rebuild keeps the
+// The reference renderer is compiled Go throughout; this rebuild keeps the
 // hot compute path in Pallas/XLA and implements the host-side runtime pieces
 // natively here (SURVEY.md §2.3): the scene compiler (BVH build — the analog
 // of NewBVH, /root/reference/internal/bvh.go:142-185) and image output

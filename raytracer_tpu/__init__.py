@@ -1,14 +1,15 @@
-"""raytracer_tpu — a TPU-native differentiable path tracer in JAX/Pallas.
+"""raytracer_tpu — a differentiable path tracer in JAX/Pallas for NVIDIA GPUs.
 
 Built from scratch with the capability surface of the Go reference renderer
 (TwFlem/raytracer-go, mounted at /root/reference): pinhole + thin-lens camera,
 spheres/quads/boxes, BVH acceleration, Lambertian/metal/dielectric/emissive
 materials, solid/checker/image/Perlin textures, and its six reference scenes —
-re-designed TPU-first:
+re-designed for a data-parallel accelerator:
 
 * SoA ray batches instead of per-pixel recursion (reference: ray.go:32-54).
-* Ray-primitive intersection expressed as MXU matmuls over per-primitive
-  feature columns (reference: hittables.go:96-198 scalar loops).
+* Ray-primitive intersection as dense masked reductions over per-primitive
+  feature columns, or a Pallas-Triton closest-hit kernel on the GPU
+  (reference: hittables.go:96-198 scalar loops).
 * Bounce recursion unrolled into an iterative wavefront loop
   (`lax.while_loop` over bounce depth with alive masks).
 * Branchless masked material dispatch (reference: materials.go interface

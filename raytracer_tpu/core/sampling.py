@@ -1,7 +1,7 @@
 """Closed-form random sampling on spheres/disks, reparameterized for autodiff.
 
 The reference uses rejection sampling loops (vec3.go:182-190 unit sphere,
-vec3.go:203-210 unit disk). Rejection loops don't vectorize on TPU — each lane
+vec3.go:203-210 unit disk). Rejection loops don't vectorize — each lane
 would iterate a data-dependent number of times — so we use exact closed-form
 (inverse-CDF) constructions over `jax.random` uniforms instead. These produce
 the *same distributions* (uniform on the unit sphere / in the unit disk), which

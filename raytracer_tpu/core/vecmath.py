@@ -1,6 +1,6 @@
 """Vector math over batched `(..., 3)` float32 arrays.
 
-TPU-native replacement for the reference's scalar Vec3 type
+Batched replacement for the reference's scalar Vec3 type
 (/root/reference/internal/vec3.go:9-172): there is no vector *class* — every
 op is a pure jnp function over arrays whose last axis is xyz, so a "Vec3" here
 is any `(..., 3)` array and a batch of N rays is a `(N, 3)` array (SoA).

@@ -57,6 +57,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from raytracer_tpu.core import vecmath as vm
 from raytracer_tpu.core.camera import Camera, CameraFrame, camera_frame
 
 
@@ -80,11 +81,13 @@ def project_to_pixels(frame: CameraFrame, p):
     rel = p - frame.center
     q0 = frame.pixel00 - frame.center
     n = jnp.cross(frame.pixel_du, frame.pixel_dv)
-    denom = rel @ n
-    lam = (q0 @ n) / jnp.where(jnp.abs(denom) < 1e-12, 1e-12, denom)
+    # Elementwise multiply-sums, not `@`: a float32 contraction may run at
+    # reduced precision (TF32) on the GPU unless it asks for HIGHEST.
+    denom = vm.dot(rel, n)
+    lam = vm.dot(q0, n) / jnp.where(jnp.abs(denom) < 1e-12, 1e-12, denom)
     r = lam[..., None] * rel - q0
-    s = (r @ frame.pixel_du) / (frame.pixel_du @ frame.pixel_du)
-    t = (r @ frame.pixel_dv) / (frame.pixel_dv @ frame.pixel_dv)
+    s = vm.dot(r, frame.pixel_du) / vm.length_sq(frame.pixel_du)
+    t = vm.dot(r, frame.pixel_dv) / vm.length_sq(frame.pixel_dv)
     return s, t, lam > 0.0
 
 
@@ -162,16 +165,12 @@ def _trace_edge_radiance(scene, frame, x_px, key, *, background, max_depth,
     Averages spp_edge stochastic paths per point; the SAME key is used for
     matching lane indices across calls (common random numbers for the in/out
     pair). These traces are pure forward evaluations (the edge weights are
-    stop-gradient), so on TPU the closest hit runs through the fused Pallas
-    kernel — at production primitive counts the dense-XLA search made edge
-    tracing ~90% of a composed gradient step (round-5 measurement)."""
+    stop-gradient), so the closest hit is the platform's fast search
+    (geometry.backend) rather than the differentiable dense one."""
+    from raytracer_tpu.geometry.backend import intersectors
     from raytracer_tpu.integrator.wavefront import trace
 
-    intersect_fn = None
-    if jax.default_backend() == "tpu":
-        from raytracer_tpu.geometry.intersect import intersect_scene_pallas_diff
-
-        intersect_fn = intersect_scene_pallas_diff
+    intersect_fn = intersectors().hit_record
 
     k_rep = jnp.tile(x_px, (spp_edge, 1))  # (spp*K, 2)
     target = (

@@ -33,9 +33,9 @@ inits.
 
 For LARGE scenes, diff/tape.py offers a tape-replay backend that removes
 backward re-intersection entirely (records the per-bounce winner with the
-fast forward, differentiates an O(1)-per-segment replay) — measured 1.5x
-at 50K primitives, a wash at 10K, slower below (its docstring has the
-numbers); this module's scan backend is the default for typical scenes.
+fast forward, differentiates an O(1)-per-segment replay); this module's
+scan backend is the default. Which one wins at which primitive count has
+not been measured on the GPU.
 
 For multi-device runs the loss is computed under sharding constraints: rays
 sharded, scene parameters replicated — XLA inserts the `psum` that all-reduces
@@ -86,10 +86,9 @@ def render_linear_diff(
     """Differentiable single-pass render: per-pixel *mean* linear radiance.
 
     Same sampling as render/driver.render_pass but through the checkpointed
-    scan integrator. On TPU the closest hit runs through the Pallas fused
-    kernel (intersect_scene_pallas_diff: kernel on stop-gradient inputs,
-    winner t recomputed differentiably) instead of the dense (N, S)
-    candidate matrices — the round-3 diff-path fast backend.
+    scan integrator. The closest hit is the platform's (geometry.backend):
+    on the GPU the Pallas kernel on stop-gradient inputs with the winner t
+    recomputed differentiably, instead of the dense (N, S) candidate arrays.
     """
     n = width * height
     k = samples_per_pass
@@ -98,12 +97,8 @@ def render_linear_diff(
     key_cam, key_trace = jax.random.split(key)
     uniforms = jax.random.uniform(key_cam, (k * n, 4), jnp.float32)
     o, d = camera_rays(frame, pix % width, pix // width, uniforms)
-    if jax.default_backend() == "tpu":
-        from raytracer_tpu.geometry.intersect import intersect_scene_pallas_diff
+    from raytracer_tpu.geometry.backend import intersectors
 
-        intersect_fn = intersect_scene_pallas_diff
-    else:
-        intersect_fn = None
     radiance = trace(
         scene,
         o,
@@ -113,8 +108,8 @@ def render_linear_diff(
         max_depth=max_depth,
         sky_gradient=sky_gradient,
         differentiable=True,
-        intersect_fn=intersect_fn,
-        intersect_fn_differentiable=intersect_fn is not None,
+        intersect_fn=intersectors().hit_record,
+        intersect_fn_differentiable=True,
     )
     return radiance.reshape(k, n, 3).mean(axis=0).reshape(height, width, 3)
 
@@ -183,8 +178,7 @@ def make_inverse_renderer(
     adds the first-bounce shadow-edge term (diff/shadow_edge.py).
 
     backend="bucketed" swaps the checkpointed-scan loss gradient for the
-    depth-bucketed tape-replay backend (diff/bucketed.py; on TPU its
-    forward runs INSIDE the persistent kernel — round 5). Since round 5 it
+    depth-bucketed tape-replay backend (diff/bucketed.py). Since round 5 it
     composes with boundary/shadow_edges (edge VJPs against the forward
     cotangent) and with `trainable_camera` (camera leaf names, e.g.
     ("look_from", "fov_radians") — leaves live under params["camera"] and
@@ -205,9 +199,8 @@ def make_inverse_renderer(
 
             # Many-primitive scenes scale the per-sphere contour budget
             # down: at 489 spheres the default 256 phi x 8 spp_edge traces
-            # ~3M edge paths per step (measured ~6 s of a 6.7 s composed
-            # step at 400x225 depth 50); 64 x 4 keeps the estimator
-            # unbiased with ~10x fewer paths — edge noise just adds to the
+            # ~3M edge paths per step; 64 x 4 keeps the estimator unbiased
+            # with ~10x fewer paths — edge noise just adds to the
             # stochastic-gradient noise the optimizer already averages.
             if n_src > 64:
                 bcfg = EdgeSamplingConfig(
@@ -226,17 +219,15 @@ def make_inverse_renderer(
                 make_shadow_boundary_fn,
             )
 
-            # Production sizes get the round-4 importance-subsampled
-            # estimator automatically: the exhaustive default (every pixel
-            # x every source) is for toy scenes/tests — at 400x225 over a
-            # 489-primitive scene it produces a program the TPU compile
-            # service rejects outright (multi-GB edge-trace operands).
+            # Production sizes get the importance-subsampled estimator
+            # automatically: the exhaustive default (every pixel x every
+            # source) is for toy scenes/tests — at 400x225 over a
+            # 489-primitive scene it builds multi-GB edge-trace operands.
             n_pix = width * height
             if n_pix > (1 << 14) or n_src > 64:
-                # 1024 x 4 x 16-contour traces/step (~0.5 s at 400x225
-                # depth 50 on v5e) — the demo recovers a blocker from its
-                # shadow at a quarter of this budget; estimator noise just
-                # adds to the stochastic-gradient noise.
+                # 1024 x 4 x 16-contour traces/step — the demo recovers a
+                # blocker from its shadow at a quarter of this budget;
+                # estimator noise just adds to the stochastic-gradient noise.
                 cfg = ShadowEdgeConfig(
                     receivers=1024, sources_per_receiver=4,
                     samples_per_sphere=16, samples_per_quad_edge=8,
@@ -271,8 +262,6 @@ def make_inverse_renderer(
             make_bucketed_grad_fn,
             split_camera,
         )
-        from raytracer_tpu.ops.persistent_kernel import scene_supports_persistent
-
         rebuild_camera = None
         if trainable_camera:
             cam_params, rebuild_camera = split_camera(cam, trainable_camera)
@@ -280,18 +269,10 @@ def make_inverse_renderer(
             params[CAMERA_PARAM_KEY] = cam_params
         opt_state = opt.init(params)
 
-        # Kernel tape forward (round 5): the production persistent kernel
-        # records the winner tape in-kernel at full speed; XLA phased
-        # forward remains the CPU / unsupported-scene fallback.
-        use_kernel_fwd = (
-            jax.default_backend() == "tpu" and scene_supports_persistent(scene)
-        )
         grad_fn = make_bucketed_grad_fn(
             rebuild, cam, target, width=width, height=height,
             samples_per_pass=samples_per_pass, max_depth=max_depth,
             sky_gradient=sky_gradient,
-            forward="kernel" if use_kernel_fwd else "xla",
-            scene_probe=scene,
             edge_image_fns=_edge_fns(),
             rebuild_camera=rebuild_camera,
         )

@@ -237,7 +237,7 @@ def make_refracted_boundary_fn(
                     inv = jnp.array(
                         [[J[1, 1], -J[0, 1]], [-J[1, 0], J[0, 0]]]
                     ) / jnp.where(jnp.abs(det) < 1e-12, 1e-12, det)
-                    step = inv @ f
+                    step = jnp.sum(inv * f[None, :], axis=-1)
                     # Damped, clipped step: the chain is wildly nonlinear
                     # near the sphere rim.
                     step = jnp.clip(step, -8.0, 8.0)
@@ -305,8 +305,8 @@ def make_refracted_boundary_fn(
         dtan2 = rep(
             jnp.stack(
                 [
-                    jnp.einsum("qmk,qk->qm", dpts, qd.av),
-                    jnp.einsum("qmk,qk->qm", dpts, qd.bv),
+                    jnp.sum(dpts * qd.av[:, None, :], axis=-1),
+                    jnp.sum(dpts * qd.bv[:, None, :], axis=-1),
                 ],
                 axis=-1,
             )
@@ -314,16 +314,16 @@ def make_refracted_boundary_fn(
         dout2 = rep(
             jnp.stack(
                 [
-                    jnp.einsum("qmk,qk->qm", out3d, qd.av),
-                    jnp.einsum("qmk,qk->qm", out3d, qd.bv),
+                    jnp.sum(out3d * qd.av[:, None, :], axis=-1),
+                    jnp.sum(out3d * qd.bv[:, None, :], axis=-1),
                 ],
                 axis=-1,
             )
         )  # (K, 2) in-plane outward dir
 
         # Screen-space tangent / outward via ds/dy2 = J^{-1}.
-        tangent = jnp.einsum("kab,kb->ka", j_inv, dtan2)
-        out2d = jnp.einsum("kab,kb->ka", j_inv, dout2)
+        tangent = jnp.sum(j_inv * dtan2[:, None, :], axis=-1)
+        out2d = jnp.sum(j_inv * dout2[:, None, :], axis=-1)
 
         tan_norm = jnp.linalg.norm(tangent, axis=-1)
         that = tangent / jnp.maximum(tan_norm, 1e-12)[:, None]
@@ -378,15 +378,15 @@ def make_refracted_boundary_fn(
             pts_t, _ = quad_edge_points(q, u, v, tau)  # (Q, M4, 3)
             y2_t = jnp.stack(
                 [
-                    jnp.einsum("qmk,qk->qm", pts_t, sg(qd.av)) - sg(qd.q_av)[:, None],
-                    jnp.einsum("qmk,qk->qm", pts_t, sg(qd.bv)) - sg(qd.q_bv)[:, None],
+                    jnp.sum(pts_t * sg(qd.av)[:, None, :], axis=-1) - sg(qd.q_av)[:, None],
+                    jnp.sum(pts_t * sg(qd.bv)[:, None, :], axis=-1) - sg(qd.q_bv)[:, None],
                 ],
                 axis=-1,
             )  # (Q, M4, 2)
             y2_k = rep(y2_t)  # (K, 2)
             # F = p2d(s*) - y2: at theta0 this equals y2_sg - y2 = 0 shift.
-            s_theta = x_star + jnp.einsum(
-                "kab,kb->ka", j_inv_sg, y2_k - sg(y2_k)
+            s_theta = x_star + jnp.sum(
+                j_inv_sg * (y2_k - sg(y2_k))[:, None, :], axis=-1
             )
             return jnp.sum(w * jnp.sum(s_theta * n_sg2, axis=-1))
 

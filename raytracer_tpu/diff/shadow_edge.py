@@ -104,16 +104,12 @@ def _trace_dirs(scene, origin, direction, key, *, background, max_depth,
     """Path-traced radiance from explicit (origin, direction) lanes,
     averaged over spp_edge CRN repeats (same key for matching lanes across
     calls — the in/out difference cancels on already-occluded segments)."""
+    from raytracer_tpu.geometry.backend import intersectors
     from raytracer_tpu.integrator.wavefront import trace
 
-    # Pure forward evaluations (edge weights are stop-gradient): on TPU
-    # the closest hit runs through the fused Pallas kernel — same round-5
-    # fix as boundary._trace_edge_radiance.
-    intersect_fn = None
-    if jax.default_backend() == "tpu":
-        from raytracer_tpu.geometry.intersect import intersect_scene_pallas_diff
-
-        intersect_fn = intersect_scene_pallas_diff
+    # Pure forward evaluations (edge weights are stop-gradient): the
+    # platform's fast closest hit, as in boundary._trace_edge_radiance.
+    intersect_fn = intersectors().hit_record
 
     o = jnp.tile(origin, (spp_edge, 1))
     d = jnp.tile(direction, (spp_edge, 1))

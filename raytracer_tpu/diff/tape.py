@@ -10,7 +10,7 @@ shade/state glue does — see the measurements below).
 This module splits the estimator into the two halves the math already has:
 
 1. **Tape forward (non-differentiable)** — trace the batch with the fast
-   path (fused Pallas closest-hit kernel on TPU) on stop-gradient inputs,
+   path (the platform's closest hit, geometry.backend) on stop-gradient inputs,
    recording ONLY the winning primitive id per (bounce, lane): the
    (max_depth, N) i32 tape. Everything discrete about the path — which
    primitive, which dielectric branch, metal absorb, termination — is a
@@ -29,13 +29,10 @@ This module splits the estimator into the two halves the math already has:
 Estimator identity: replay radiance == scan radiance for the same injected
 uniforms (pinned by test); gradients agree to fp tolerance.
 
-Measured cost (v5e, 200x112@8spp depth 16, one jitted value_and_grad step;
-docs/PERF_NOTES.md): the replay eliminates backward re-intersection but
-adds a third loop pass, so it pays off only when intersection dominates —
-489 prims: 0.54 s vs 0.33 scan (scan wins; per-bounce glue dominates),
-10K: 0.73 vs 0.74 (wash), 50K: 1.70 vs 2.61 (tape 1.5x and widening with
-primitive count). Use the scan backend (render_linear_diff) below ~10K
-primitives and this one above.
+Cost: the replay eliminates backward re-intersection but adds a third loop
+pass, so it can pay off only when intersection dominates the step, i.e. at
+large primitive counts. The crossover against the scan backend
+(render_linear_diff) has not been measured on the GPU.
 
 The reference has no autodiff (SURVEY.md §2.2); both backends serve the
 BASELINE.md gradient axis. Visibility boundary terms remain diff/boundary
@@ -97,7 +94,6 @@ def trace_tape(
     *,
     max_depth: int,
     sky_gradient: bool = False,
-    use_pallas: bool = False,
 ):
     """Differentiable radiance via tape replay (same signature contract as
     trace(differentiable=True) with injected uniforms).
@@ -106,15 +102,9 @@ def trace_tape(
     tape pins the discrete decisions the forward made, and the replay must
     consume the identical randomness to reproduce them.
     """
+    from raytracer_tpu.geometry.backend import intersectors
+
     sg = jax.lax.stop_gradient
-    intersect_fwd = None
-    if use_pallas:
-        # (the _diff variant only for its internal ray padding — the whole
-        # forward is stop-gradient anyway)
-        from raytracer_tpu.geometry.intersect import intersect_scene_pallas_diff
-
-        intersect_fwd = intersect_scene_pallas_diff
-
     _, tape = trace(
         sg(scene),
         sg(origin),
@@ -124,7 +114,7 @@ def trace_tape(
         max_depth=max_depth,
         sky_gradient=sky_gradient,
         uniform_seq=sg(uniform_seq),
-        intersect_fn=intersect_fwd,
+        intersect_fn=intersectors().hit_record,
         return_tape=True,
     )
     return trace(
@@ -178,6 +168,5 @@ def render_linear_tape(
         cam.background,
         max_depth=max_depth,
         sky_gradient=sky_gradient,
-        use_pallas=jax.default_backend() == "tpu",
     )
     return radiance.reshape(k, n, 3).mean(axis=0).reshape(height, width, 3)

@@ -5,7 +5,7 @@ top-down with a *random* axis per node (bvh.go:147), sort-by-AABB-min and
 median split (bvh.go:176-179), traversed recursively with the right child's
 interval shrunk by the left hit (bvh.go:220-249).
 
-TPU-first redesign:
+Device-first redesign:
 * The builder is deterministic (longest-axis median split — the reference's
   random axis only exists because Go's sort needed *a* comparator; hit
   results are identical for any valid BVH) and runs on host (NumPy) — scene
@@ -16,15 +16,15 @@ TPU-first redesign:
   stackless "skip link" (escape index): nodes are laid out in DFS preorder;
   a hit on the node's box advances to the next node (child), a miss jumps to
   `skip[i]`, so traversal is a single data-dependent loop with no stack —
-  the standard GPU/TPU-friendly encoding.
+  the standard GPU-friendly encoding.
 * Leaves reference a contiguous range of a primitive permutation, so leaf
   primitives are tested with the same branchless sphere/quad math as the
   dense path.
 
-The dense intersect (geometry/intersect.py) remains the default device path
-— for ~500-primitive scenes brute force is VPU-bound and SIMD-coherent,
-while per-lane traversal diverges across 1024-lane vregs. The BVH is the
-scaling path for large scenes (and the correctness oracle pins both).
+The dense intersect (geometry/intersect.py) and its kernel form remain the
+device path; `bvh_closest_hit` has no production caller yet. It is the
+scaling path for large scenes (per-lane traversal on the GPU's SIMT lanes),
+and the correctness oracle pins both.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from raytracer_tpu.core import vecmath as vm
 from raytracer_tpu.geometry.scene import Scene
 
 
@@ -154,207 +155,6 @@ def build_bvh(scene: Scene, leaf_size: int = 4, use_native: bool = True) -> Flat
     )
 
 
-class ClusterSet(NamedTuple):
-    """Two-level cluster tables for the persistent kernel's in-kernel
-    culling (all rows 8-wide f32: [min(3), max(3), start, count]).
-
-    * `sph` (Gs, 8): fine sphere clusters; start/count index the permuted
-      sphere table.
-    * `sph_super` (Ss, 8): coarse level over the fine rows; start/count
-      index `sph` ROWS. (0, 8) when the scene is too small to benefit —
-      the kernel then runs the single-level loop.
-    * `quad` / `quad_super`: the same two levels for quads (start/count of
-      `quad` index the permuted quad table). (0, 8) disables quad culling
-      (dense quad loop).
-
-    Start/count are exact in f32 for any realistic scene size < 2^24.
-    """
-
-    sph: jnp.ndarray
-    sph_super: jnp.ndarray
-    quad: jnp.ndarray
-    quad_super: jnp.ndarray
-
-
-_EMPTY_ROWS = jnp.zeros((0, 8), jnp.float32)
-
-
-def _cut_walk(skip, leaf_start, leaf_count, order, counts, limit, lo=0, hi=None):
-    """Preorder walk over [lo, hi): emit the shallowest subtree roots whose
-    kind-count is <= limit (or that are leaves). `counts` is the per-node
-    kind count; nodes with zero kind prims are skipped entirely."""
-    cuts = []
-    i = lo
-    end = len(skip) if hi is None else hi
-    while i < end:
-        if counts[i] == 0:
-            i = skip[i]
-        elif counts[i] <= limit or leaf_start[i] >= 0:
-            cuts.append(i)
-            i = skip[i]
-        else:
-            i += 1
-    return cuts
-
-
-def _cluster_kind(
-    bvh: FlatBVH,
-    bmin,
-    bmax,
-    keep,
-    max_leaf: int,
-    super_fan: int,
-    min_fine_for_super: int,
-):
-    """Fine + super cluster rows for one primitive kind.
-
-    `keep(p)` selects the kind's global primitive ids. Returns
-    (perm: list of kind prim ids in cluster order, fine (G, 8) np rows,
-    super (S, 8) np rows) — supers empty when G < min_fine_for_super (one
-    slab level already covers a small table)."""
-    skip = np.asarray(bvh.skip)
-    leaf_start = np.asarray(bvh.leaf_start)
-    leaf_count = np.asarray(bvh.leaf_count)
-    order = np.asarray(bvh.prim_order)
-
-    m = len(skip)
-    counts = np.zeros(m, np.int64)
-    for i in range(m - 1, -1, -1):
-        if leaf_start[i] >= 0:
-            prims = order[leaf_start[i] : leaf_start[i] + leaf_count[i]]
-            counts[i] = int(keep(prims).sum())
-        else:
-            left = i + 1
-            right = skip[left]
-            counts[i] = counts[left] + (counts[right] if right < m else 0)
-
-    def subtree_prims(node):
-        ids = []
-        j = node
-        end = skip[node]
-        while j < end:
-            if leaf_start[j] >= 0:
-                s, c = leaf_start[j], leaf_count[j]
-                ids.extend(int(p) for p in order[s : s + c] if keep(np.int64(p)))
-            j += 1
-        return ids
-
-    def row(ids, start, count):
-        return np.concatenate(
-            [bmin[ids].min(axis=0), bmax[ids].max(axis=0),
-             [float(start), float(count)]]
-        )
-
-    perm: list[int] = []
-    fine_rows: list[np.ndarray] = []
-    super_rows: list[np.ndarray] = []
-    coarse = _cut_walk(
-        skip, leaf_start, leaf_count, order, counts, max_leaf * super_fan
-    )
-    for cnode in coarse:
-        fine_lo = len(fine_rows)
-        for fnode in _cut_walk(
-            skip, leaf_start, leaf_count, order, counts, max_leaf,
-            lo=cnode, hi=skip[cnode],
-        ):
-            ids = subtree_prims(fnode)
-            if not ids:
-                continue
-            fine_rows.append(row(ids, len(perm), len(ids)))
-            perm.extend(ids)
-        if len(fine_rows) > fine_lo:
-            sub = np.stack(fine_rows[fine_lo:])
-            super_rows.append(
-                np.concatenate(
-                    [sub[:, 0:3].min(axis=0), sub[:, 3:6].max(axis=0),
-                     [float(fine_lo), float(len(fine_rows) - fine_lo)]]
-                )
-            )
-    fine = (
-        np.stack(fine_rows).astype(np.float32)
-        if fine_rows
-        else np.zeros((0, 8), np.float32)
-    )
-    if len(fine_rows) < min_fine_for_super:
-        sup = np.zeros((0, 8), np.float32)
-    else:
-        sup = np.stack(super_rows).astype(np.float32)
-    return perm, fine, sup
-
-
-def cluster_scene(
-    scene: Scene,
-    max_leaf: int = 128,
-    super_fan: int = 16,
-    min_fine_for_super: int = 24,
-):
-    """Cluster-order the scene's primitives along BVH subtree cuts (host,
-    once per scene) for the persistent kernel's in-kernel cluster culling.
-
-    Cuts the BVH at the shallowest subtrees holding <= max_leaf prims of a
-    kind and emits each subtree's prims contiguously, so a single
-    (start, count) range plus one AABB describes a spatial cluster — the
-    TPU analog of the reference's subtree skip during traversal
-    (bvh.go:220-249): the kernel slab-tests each cluster AABB per lane and
-    a tile-uniform `lax.cond` skips the cluster's primitive loop when no
-    live lane can hit it. Applies to spheres AND quads (the reference BVH
-    accepts any Hittable, bvh.go:132-141); each kind gets its own tables
-    because the kernel intersects them in separate loops.
-
-    Round 4 adds a SECOND level — super-clusters of <= max_leaf*super_fan
-    prims, cut from the same BVH so each super's fine clusters are
-    contiguous — restoring the *hierarchy* of bvh.go:220-249: one coarse
-    slab miss skips up to `super_fan` fine slab tests. Below
-    `min_fine_for_super` fine clusters the coarse level is dropped (the
-    extra slab + reduce per super would outweigh the skips).
-
-    Returns (scene with spheres and quads permuted into cluster order —
-    dummy prims dropped, they can never hit — and a ClusterSet).
-    Materials/textures are shared tables keyed by sph_mat/quad_mat, so the
-    permutation only touches the per-primitive arrays."""
-    ns = scene.num_spheres
-    bvh = build_bvh(scene, leaf_size=8)
-    bmin, bmax = primitive_bounds(scene)
-
-    s_perm, s_fine, s_super = _cluster_kind(
-        bvh, bmin, bmax, lambda p: p < ns, max_leaf, super_fan,
-        min_fine_for_super,
-    )
-    q_perm, q_fine, q_super = _cluster_kind(
-        bvh, bmin, bmax, lambda p: p >= ns, max_leaf, super_fan,
-        min_fine_for_super,
-    )
-
-    if not s_perm:  # no real spheres: one dummy so shapes stay valid
-        s_perm = [0]
-        s_fine = np.array([[0, 0, 0, 0, 0, 0, 0.0, 1.0]], np.float32)
-        s_super = np.zeros((0, 8), np.float32)
-    p = np.asarray(s_perm, np.int64)
-    repl = dict(
-        sph_center=scene.sph_center[p],
-        sph_radius=scene.sph_radius[p],
-        sph_mat=scene.sph_mat[p],
-    )
-    if q_perm:
-        q = np.asarray(q_perm, np.int64) - ns
-        repl.update(
-            quad_q=scene.quad_q[q],
-            quad_u=scene.quad_u[q],
-            quad_v=scene.quad_v[q],
-            quad_mat=scene.quad_mat[q],
-        )
-    else:
-        q_fine = np.zeros((0, 8), np.float32)
-        q_super = np.zeros((0, 8), np.float32)
-    scene_cl = scene.replace(**repl)
-    return scene_cl, ClusterSet(
-        sph=jnp.asarray(s_fine),
-        sph_super=jnp.asarray(s_super),
-        quad=jnp.asarray(q_fine),
-        quad_super=jnp.asarray(q_super),
-    )
-
-
 def _slab_test(box_min, box_max, o, inv_d, t_min, t_max):
     """Branchless slab test (reference Aabb.Hit / InBoundary, bvh.go:52-102,
     strict `rT.min < rT.max`)."""
@@ -385,8 +185,7 @@ def bvh_closest_hit(scene: Scene, bvh: FlatBVH, origin, direction, t_min=1e-3):
     def one_ray(o, d):
         # Sign-preserving tiny nudge on zero direction components: 1/0 = inf
         # and (box-o)*inf with o ON the plane is 0*inf = NaN, whose
-        # comparisons read as miss — the bug class commit 3329cbb fixed in
-        # ops/culled_kernel.py. Keep the slab test conservative here too.
+        # comparisons read as miss. Keep the slab test conservative.
         tiny = 1e-30
         safe_d = jnp.where(jnp.abs(d) < tiny, jnp.where(d < 0, -tiny, tiny), d)
         inv_d = 1.0 / safe_d
@@ -400,9 +199,9 @@ def bvh_closest_hit(scene: Scene, bvh: FlatBVH, origin, direction, t_min=1e-3):
             c = scene.sph_center[si]
             r = scene.sph_radius[si]
             oc = o - c
-            a = jnp.dot(d, d)
-            half_b = jnp.dot(d, oc)
-            cc = jnp.dot(oc, oc) - r * r
+            a = vm.dot(d, d)
+            half_b = vm.dot(d, oc)
+            cc = vm.dot(oc, oc) - r * r
             disc = half_b * half_b - a * cc
             sq = jnp.sqrt(jnp.maximum(disc, 0.0))
             ts0 = (-half_b - sq) / a
@@ -415,12 +214,12 @@ def bvh_closest_hit(scene: Scene, bvh: FlatBVH, origin, direction, t_min=1e-3):
             t_s = jnp.minimum(ts0, ts1)
             # Quad (hittables.go:167-194)
             nrm = qd.normal[qi]
-            dn = jnp.dot(d, nrm)
+            dn = vm.dot(d, nrm)
             ok = jnp.abs(dn) >= 1e-8
-            tq = (qd.d[qi] - jnp.dot(o, nrm)) / jnp.where(ok, dn, 1.0)
+            tq = (qd.d[qi] - vm.dot(o, nrm)) / jnp.where(ok, dn, 1.0)
             pt = o + tq * d
-            alpha = jnp.dot(pt, qd.av[qi]) - qd.q_av[qi]
-            beta = jnp.dot(pt, qd.bv[qi]) - qd.q_bv[qi]
+            alpha = vm.dot(pt, qd.av[qi]) - qd.q_av[qi]
+            beta = vm.dot(pt, qd.bv[qi]) - qd.q_bv[qi]
             okq = (
                 ok
                 & (tq > t_min)

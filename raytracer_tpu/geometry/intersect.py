@@ -1,19 +1,20 @@
-"""Batched ray–scene intersection, formulated for the MXU.
+"""Batched ray–scene intersection as dense masked reductions.
 
-TPU-first redesign of the reference's closest-hit machinery: the Go code walks
-a BVH with per-ray recursion and branchy scalar intersection tests
+Redesign of the reference's closest-hit machinery: the Go code walks a BVH
+with per-ray recursion and branchy scalar intersection tests
 (hittables.go:96-132 sphere, hittables.go:167-194 quad, bvh.go:220-249
-traversal). On TPU the dense formulation wins for scenes of this size
-(~500 primitives): every ray-primitive dot product that the scalar code
-computes one at a time becomes a single `(N,3) @ (3,K)` matmul, and the
-closest-hit "shrinking t_max" loop (hittables.go:55-72) becomes a masked
-min-reduction over the primitive axis. Everything is branchless — validity
-conditions are masks, invalid candidates get t = +inf.
+traversal). Here every ray-primitive test of a batch is one elementwise
+expression over the (N, K) ray x primitive domain, and the closest-hit
+"shrinking t_max" loop (hittables.go:55-72) becomes a masked min-reduction
+over the primitive axis. Everything is branchless — validity conditions are
+masks, invalid candidates get t = +inf.
 
 The math reproduces the reference exactly (same half-b quadratic, same strict
 open interval (t_min, +inf), same root-selection order, same quad plane/basis
 test), so primary-hit t/normal/uv can be compared bit-close against a NumPy
-port in the tests.
+port in the tests. `closest_hit_pallas` / `intersect_scene_pallas_diff` run
+the same search through the Pallas-Triton kernel (ops/closest_hit.py), which
+keeps the running (t, prim) in registers instead of (N, K) arrays.
 """
 
 from __future__ import annotations
@@ -22,22 +23,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-def _dot_nk(a, b_t):
-    """(N,3) · (3,K) ray-feature dot products as VPU broadcast arithmetic.
-
-    Deliberately NOT a matmul: a K=3 contraction on the MXU pads K to 128
-    (wasting ~40x) and f32 inputs either round through bf16 (default —
-    measured 1.7% hit-t error, visibly wrong images) or pay the 6-pass
-    HIGHEST-precision mode (measured ~9x slower renders). Three broadcast
-    multiply-adds on the (N,K) domain are exact f32 and fuse with the
-    intersection epilogue into a single VPU pass.
-    """
-    return (
-        a[:, 0:1] * b_t[0][None, :]
-        + a[:, 1:2] * b_t[1][None, :]
-        + a[:, 2:3] * b_t[2][None, :]
-    )
 
 from raytracer_tpu.core import vecmath as vm
 from raytracer_tpu.geometry.scene import Scene
@@ -50,6 +35,22 @@ QUAD_DENOM_EPS = 1e-8
 # Sphere-UV phi offset quirk (hittables.go:124-125) — the reference adds
 # 5*pi/12 to phi "to make the earth texture line up"; reproduced for parity.
 SPHERE_UV_PHI_OFFSET = 5.0 * jnp.pi / 12.0
+
+
+def _dot_nk(a, b_t):
+    """(N,3) · (3,K) ray-feature dot products as broadcast multiply-adds.
+
+    Deliberately NOT a matmul: a float32 contraction may run at reduced
+    precision (TF32 on the GPU's tensor cores) unless every call asks for
+    HIGHEST, and a 1.7% hit-t error is a visibly wrong image. Three
+    broadcast multiply-adds on the (N,K) domain are exact f32 and fuse with
+    the intersection epilogue.
+    """
+    return (
+        a[:, 0:1] * b_t[0][None, :]
+        + a[:, 1:2] * b_t[1][None, :]
+        + a[:, 2:3] * b_t[2][None, :]
+    )
 
 
 class HitRecord(NamedTuple):
@@ -84,7 +85,8 @@ def quad_derived(scene: Scene) -> QuadDerived:
     The reference computes alpha = w·(p×v), beta = w·(u×p) per hit
     (hittables.go:185-186). By the scalar-triple-product identity these are
     alpha = p·(v×w), beta = p·(w×u) — so we precompute av = v×w, bv = w×u once
-    per quad and the per-ray work becomes two more columns in the big matmul.
+    per quad and the per-ray work becomes two more columns of the (N, 3Q)
+    dot products.
     """
     n_raw = jnp.cross(scene.quad_u, scene.quad_v)
     nn = vm.length_sq(n_raw)
@@ -113,20 +115,20 @@ def _sphere_candidate_t(scene: Scene, origin, direction, t_min):
       disc = half_b^2 - a c;  roots (-half_b ∓ sqrt(disc)) / a,
       nearest root first, strict open interval test (bvh.go:18-20).
 
-    The ray-dependent dot products d·c and o·c over all spheres are the two
-    matmuls (N,3)@(3,S) — MXU work; the epilogue is elementwise on (N,S).
+    oc is formed per (ray, sphere) rather than expanding |o - c|^2 as
+    |o|^2 - 2 o·c + |c|^2: the expansion cancels catastrophically for small
+    spheres far from the world origin and for rays leaving a surface, where
+    it moved a root across t_min by up to ~1e-2. All of it is elementwise
+    on (N, S).
     """
     centers = scene.sph_center  # (S, 3)
     radius = scene.sph_radius  # (S,)
-    d_dot_c = _dot_nk(direction, centers.T)  # (N, S) — MXU
-    o_dot_c = _dot_nk(origin, centers.T)  # (N, S) — MXU
+    ocx = origin[:, 0:1] - centers[None, :, 0]  # (N, S)
+    ocy = origin[:, 1:2] - centers[None, :, 1]
+    ocz = origin[:, 2:3] - centers[None, :, 2]
     a = vm.length_sq(direction)[:, None]  # (N, 1)
-    d_dot_o = vm.dot(direction, origin)[:, None]  # (N, 1)
-    o_sq = vm.length_sq(origin)[:, None]  # (N, 1)
-    c_sq_minus_r_sq = vm.length_sq(centers) - radius * radius  # (S,)
-
-    half_b = d_dot_o - d_dot_c  # (N, S)
-    c = o_sq - 2.0 * o_dot_c + c_sq_minus_r_sq  # (N, S)
+    half_b = direction[:, 0:1] * ocx + direction[:, 1:2] * ocy + direction[:, 2:3] * ocz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - (radius * radius)[None, :]
     disc = half_b * half_b - a * c
     # Safe sqrt: masked-off lanes (disc <= 0) must not see sqrt'(0) = inf —
     # a zero cotangent times an inf partial is NaN and would poison scene
@@ -149,11 +151,11 @@ def _quad_candidate_t(scene: Scene, qd: QuadDerived, origin, direction, t_min):
     plane coordinates (kept for the winner's UV).
 
     Reference math (hittables.go:167-194). The six ray-dependent dot products
-    (o·n̂, d·n̂, o·av, d·av, o·bv, d·bv) are two matmuls (N,3)@(3,3Q).
+    (o·n̂, d·n̂, o·av, d·av, o·bv, d·bv) are two (N,3)·(3,3Q) products.
     """
     feats = jnp.concatenate([qd.normal, qd.av, qd.bv], axis=0)  # (3Q, 3)
-    o_f = _dot_nk(origin, feats.T)  # (N, 3Q) — MXU
-    d_f = _dot_nk(direction, feats.T)  # (N, 3Q) — MXU
+    o_f = _dot_nk(origin, feats.T)  # (N, 3Q)
+    d_f = _dot_nk(direction, feats.T)  # (N, 3Q)
     nq = qd.normal.shape[0]
     o_n, o_av, o_bv = o_f[:, :nq], o_f[:, nq : 2 * nq], o_f[:, 2 * nq :]
     d_n, d_av, d_bv = d_f[:, :nq], d_f[:, nq : 2 * nq], d_f[:, 2 * nq :]
@@ -179,7 +181,7 @@ def _sphere_uv(unit_normal):
 
 
 def resolve_hits(scene: Scene, qd: QuadDerived, origin, direction, t, prim) -> HitRecord:
-    """Epilogue shared by the dense and Pallas candidate searches: given the
+    """Epilogue shared by the dense and kernel candidate searches: given the
     winning (t, prim) per ray, compute point/normal/uv/material/front-face.
     All per-winner quantities are recomputed from gathered primitive rows
     (N-sized work; no (N, S) buffers)."""
@@ -230,29 +232,6 @@ def resolve_hits(scene: Scene, qd: QuadDerived, origin, direction, t, prim) -> H
     )
 
 
-def intersect_scene_pallas(
-    scene: Scene, origin, direction, t_min: float = DEFAULT_T_MIN
-) -> HitRecord:
-    """Closest hit via the fused Pallas kernel (ops/intersect_kernel.py);
-    requires N % (rows*128) == 0 and a TPU backend. Same results as
-    intersect_scene (oracle-tested). The kernel compiles T_MIN in as a
-    constant, so a non-default t_min is rejected rather than silently
-    ignored."""
-    from raytracer_tpu.ops import intersect_kernel as ik
-
-    if t_min != ik.T_MIN:
-        raise ValueError(
-            f"intersect_scene_pallas compiles t_min={ik.T_MIN} into the "
-            f"kernel; got {t_min} (use intersect_scene for a custom t_min)"
-        )
-
-    qd = quad_derived(scene)
-    sph_table = ik.pack_sphere_table(scene.sph_center, scene.sph_radius)
-    quad_table = ik.pack_quad_table(qd)
-    t, prim = ik.intersect_pallas(sph_table, quad_table, origin, direction)
-    return resolve_hits(scene, qd, origin, direction, t, prim)
-
-
 def _winner_t_diff(scene, qd, origin, direction, prim, t_nd, t_min):
     """Differentiable recompute of the winning candidate's t.
 
@@ -296,117 +275,52 @@ def _winner_t_diff(scene, qd, origin, direction, prim, t_nd, t_min):
     return jnp.where(hit, t, t_nd)
 
 
-def intersect_scene_pallas_diff(
-    scene: Scene, origin, direction, t_min: float = DEFAULT_T_MIN
-) -> HitRecord:
-    """Differentiable closest hit with a PALLAS forward (the diff-path fast
-    backend, round-3 VERDICT item 3).
+def closest_hit_pallas(
+    scene: Scene, origin, direction, t_min: float = DEFAULT_T_MIN,
+    *, interpret: bool = False,
+):
+    """`closest_hit_t_prim` through the Pallas-Triton kernel: winning
+    (t (N,), prim (N,) i32, -1 on miss). The kernel compiles T_MIN in as a
+    constant, so a non-default t_min is rejected rather than silently
+    ignored. `interpret=True` runs the kernel through the Pallas
+    interpreter (CPU tests)."""
+    from raytracer_tpu.ops import closest_hit as ch
 
-    The fused kernel finds the winner (t, prim) on stop-gradient inputs —
-    no cotangent ever reaches the pallas_call, so it needs no VJP — and the
+    if t_min != ch.T_MIN:
+        raise ValueError(
+            f"the closest-hit kernel compiles t_min={ch.T_MIN}; got {t_min} "
+            "(use closest_hit_t_prim for a custom t_min)"
+        )
+    return ch.closest_hit(
+        ch.pack_sphere_table(scene.sph_center, scene.sph_radius),
+        ch.pack_quad_table(quad_derived(scene)),
+        origin,
+        direction,
+        interpret=interpret,
+    )
+
+
+def intersect_scene_pallas_diff(
+    scene: Scene, origin, direction, t_min: float = DEFAULT_T_MIN,
+    *, interpret: bool = False,
+) -> HitRecord:
+    """Differentiable closest hit with a Pallas-kernel search.
+
+    The kernel finds the winner (t, prim) on stop-gradient inputs — no
+    cotangent ever reaches the pallas_call, so it needs no VJP — and the
     winner's t is then RECOMPUTED differentiably from the scene arrays
     (_winner_t_diff), feeding the fully differentiable resolve_hits
     epilogue. Numerically the recomputed t matches the kernel's to fp
-    rounding (same formulas, different association). Rays are padded to the
-    kernel tile with far dummies and sliced back.
+    rounding (same formulas, different association).
     """
-    from raytracer_tpu.ops import intersect_kernel as ik
-
-    if t_min != ik.T_MIN:
-        raise ValueError(
-            f"intersect_scene_pallas_diff compiles t_min={ik.T_MIN}; got {t_min}"
-        )
     sg = jax.lax.stop_gradient
-    scene_ng = jax.tree_util.tree_map(sg, scene)
-    o_ng = sg(origin)
-    d_ng = sg(direction)
-    n = origin.shape[0]
-    tile = ik.DEFAULT_ROWS * ik.LANES
-    pad = (-n) % tile
-    if pad:
-        o_ng = jnp.concatenate(
-            [o_ng, jnp.full((pad, 3), 1e7, origin.dtype)], axis=0
-        )
-        d_ng = jnp.concatenate(
-            [d_ng, jnp.ones((pad, 3), direction.dtype)], axis=0
-        )
-    sph_table = ik.pack_sphere_table(scene_ng.sph_center, scene_ng.sph_radius)
-    quad_table = ik.pack_quad_table(quad_derived(scene_ng))
-    t_nd, prim = ik.intersect_pallas(sph_table, quad_table, o_ng, d_ng)
-    t_nd, prim = t_nd[:n], prim[:n]
-
+    t_nd, prim = closest_hit_pallas(
+        jax.tree_util.tree_map(sg, scene), sg(origin), sg(direction), t_min,
+        interpret=interpret,
+    )
     qd = quad_derived(scene)
     t = _winner_t_diff(scene, qd, origin, direction, prim, t_nd, t_min)
     return resolve_hits(scene, qd, origin, direction, t, prim)
-
-
-class LargeSceneTables(NamedTuple):
-    """Precomputed device tables for the large-scene intersectors: the dense
-    Pallas tables plus the BVH-derived cluster tables of ops/culled_kernel.
-    Build once per scene on the host (build_large_scene_tables)."""
-
-    sph_table: jnp.ndarray  # (S, 4) — dense kernel
-    quad_table: jnp.ndarray  # (Q, 12)
-    clusters: jnp.ndarray  # (G, 8) — culled kernel
-    cluster_order: jnp.ndarray  # (8, G)
-    sph_clustered: jnp.ndarray  # (S', 4) cluster-ordered
-    orig_ids: jnp.ndarray  # (S',) i32
-    qd: object  # QuadDerived — shared by resolve_hits (built once, not per bounce)
-
-
-def build_large_scene_tables(scene: Scene, max_leaf: int = 128) -> LargeSceneTables:
-    """Host-side (NumPy BVH build): tables for intersect_scene_culled /
-    the dense Pallas fallback. Call once per scene, outside jit."""
-    from raytracer_tpu.ops import culled_kernel as ck
-    from raytracer_tpu.ops import intersect_kernel as ik
-
-    qd = quad_derived(scene)
-    cl, order, sph_cl, orig = ck.build_clusters(scene, max_leaf=max_leaf)
-    return LargeSceneTables(
-        sph_table=ik.pack_sphere_table(scene.sph_center, scene.sph_radius),
-        quad_table=ik.pack_quad_table(qd),
-        clusters=cl,
-        cluster_order=order,
-        sph_clustered=sph_cl,
-        orig_ids=orig,
-        qd=qd,
-    )
-
-
-def intersect_scene_culled(
-    scene: Scene, tables: LargeSceneTables, origin, direction
-) -> HitRecord:
-    """Closest hit via the cluster-culled Pallas kernel — for COHERENT ray
-    batches (camera rays in pixel order), where the per-tile AABB skip
-    actually fires. The TPU analog of BVH.Hit's subtree culling
-    (/root/reference/internal/bvh.go:220-249): measured 1.5-4.4x over dense
-    brute force at 10K-50K spheres on camera rays, a wash on incoherent
-    bounce rays (docs/PERF_NOTES.md round 2). Oracle-exact vs intersect_scene."""
-    from raytracer_tpu.ops import culled_kernel as ck
-
-    t, prim = ck.intersect_pallas_culled(
-        tables.clusters,
-        tables.cluster_order,
-        tables.sph_clustered,
-        tables.orig_ids,
-        tables.quad_table,
-        scene.num_spheres,
-        origin,
-        direction,
-    )
-    return resolve_hits(scene, tables.qd, origin, direction, t, prim)
-
-
-def intersect_scene_pallas_tables(
-    scene: Scene, tables: LargeSceneTables, origin, direction
-) -> HitRecord:
-    """Dense Pallas closest hit from prebuilt tables (bounce rays on the
-    large-scene path; incoherent batches where culling cannot win)."""
-    from raytracer_tpu.ops import intersect_kernel as ik
-
-    t, prim = ik.intersect_pallas(tables.sph_table, tables.quad_table, origin, direction)
-    return resolve_hits(scene, tables.qd, origin, direction, t, prim)
-
 
 def closest_hit_t_prim(scene: Scene, origin, direction, t_min: float = DEFAULT_T_MIN):
     """Dense candidate search only: winning (t (N,), prim (N,) i32) without

@@ -3,7 +3,7 @@
 Replaces the reference's `World` (a Go slice of `Hittable` interface values,
 /root/reference/internal/hittables.go:39-76) and its `Material`/`Texture`
 interface dispatch (materials.go:9-17, 147-149) with flat, statically-shaped
-tables — the idiomatic TPU encoding: geometry is `(S,3)`/`(Q,3)` arrays,
+tables — the idiomatic accelerator encoding: geometry is `(S,3)`/`(Q,3)` arrays,
 materials a type-enum + packed-parameter table, textures likewise. All
 dispatch happens as masked selects in the shading kernel.
 
@@ -15,9 +15,11 @@ centers/radii, quad corners, albedos, fuzz and IOR.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 # Material type enum (reference: concrete Material impls, materials.go).
 LAMBERTIAN = 0  # materials.go:19-42
@@ -34,7 +36,27 @@ TEX_NOISE = 3  # materials.go:264-295
 PERLIN_POINT_COUNT = 256  # materials.go:203
 
 
-@struct.dataclass
+def _static(default=False):
+    """A dataclass field that is pytree metadata (static), not a leaf."""
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
+def _pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree: fields made with `_static`
+    are metadata, every other field is a leaf. `replace(**changes)` returns
+    a copy with those fields swapped."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in fields if not f.metadata.get("static")],
+        meta_fields=[f.name for f in fields if f.metadata.get("static")],
+    )
+    cls.replace = dataclasses.replace
+    return cls
+
+
+@_pytree_dataclass
 class Scene:
     """Device-side scene tables. Array fields are pytree leaves
     (differentiable); `has_*` fields are static and gate optional work."""
@@ -76,18 +98,18 @@ class Scene:
     perlin_pz: jnp.ndarray  # (256,) i32
 
     # Static flags (not traced) gating optional texture machinery.
-    has_image: bool = struct.field(pytree_node=False, default=False)
-    has_noise: bool = struct.field(pytree_node=False, default=False)
-    has_checker: bool = struct.field(pytree_node=False, default=False)
+    has_image: bool = _static()
+    has_noise: bool = _static()
+    has_checker: bool = _static()
     # Perlin tables were generated by materials/perlin_hash.py: the noise
-    # eval recomputes entries with integer hashes (zero gathers — XLA's
-    # tiny-table gather lowering is ~500x slower) instead of gathering.
+    # eval recomputes entries with integer hashes (zero gathers) instead of
+    # gathering.
     # The tables stay on the Scene either way, so the scalar oracle and the
     # gather path remain bit-identical to the procedural path.
-    perlin_procedural: bool = struct.field(pytree_node=False, default=False)
+    perlin_procedural: bool = _static()
     # Bilinear image filtering (BASELINE.md upgrade; reference is nearest-
     # neighbor, materials.go:181-192 — keep False for reference parity).
-    bilinear_textures: bool = struct.field(pytree_node=False, default=False)
+    bilinear_textures: bool = _static()
 
     @property
     def num_spheres(self) -> int:
@@ -146,10 +168,7 @@ class SceneBuilder:
         Texels are quantized to 8-bit steps (k/255) at build time: the
         reference's textures are 8-bit JPEGs whose 16-bit RGBA() promotion
         scales back to exactly value/255 (materials.go:184-192, file.go:20-28),
-        so this matches the reference pipeline's source fidelity — and it lets
-        the persistent kernel pack a texel's RGB exactly into one f32 mantissa
-        (ops/persistent_kernel.py image path), keeping every render path
-        bit-consistent."""
+        so this matches the reference pipeline's source fidelity."""
         img = np.asarray(img, np.float32)
         assert img.ndim == 3 and img.shape[2] == 3, img.shape
         img = np.clip(np.round(img * 255.0), 0.0, 255.0) * np.float32(1.0 / 255.0)
@@ -233,9 +252,8 @@ class SceneBuilder:
         helps scenes that share those. bucket_shapes=True rounds EVERY table
         (spheres, quads, materials, textures) up to a shared size bucket
         (see `bucket_size`) so scenes with nearby table sizes and equal
-        static flags share one jit executable — this tames the documented
-        minute-scale remote compile per new scene shape. The CLI enables it
-        by default. bilinear_textures upgrades image lookups from the
+        static flags share one jit executable — one compile serves them all.
+        The CLI enables it by default. bilinear_textures upgrades image lookups from the
         reference's nearest-neighbor to bilinear filtering.
 
         procedural_perlin=True (default) fills the Perlin tables from

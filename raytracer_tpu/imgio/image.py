@@ -7,16 +7,10 @@ camera.go:183-191 / vec3.go:141-143.
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
-
-try:  # Pillow ships with the baked-in transformers stack; gate just in case.
-    from PIL import Image as _PILImage
-
-    HAS_PIL = True
-except Exception:  # pragma: no cover
-    _PILImage = None
-    HAS_PIL = False
 
 
 def write_ppm(path: str, img_u8: np.ndarray) -> None:
@@ -51,22 +45,30 @@ def read_ppm(path: str) -> np.ndarray:
     return data.reshape(h, w, 3).astype(np.uint8)
 
 
-def write_png(path: str, img_u8: np.ndarray) -> None:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if HAS_PIL:
-        _PILImage.fromarray(np.asarray(img_u8), "RGB").save(path)
-    else:  # pragma: no cover
-        # Don't claim success at `path` with nothing there: write the raw
-        # array next to it and say so (PPM output needs no Pillow —
-        # `--out x.ppm`).
-        np.save(path + ".npy", np.asarray(img_u8))
-        import sys
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (
+        struct.pack(">I", len(data))
+        + kind
+        + data
+        + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+    )
 
-        print(
-            f"warning: Pillow unavailable — wrote {path}.npy (raw u8 array) "
-            f"instead of {path}; use a .ppm output for a Pillow-free image",
-            file=sys.stderr,
-        )
+
+def write_png(path: str, img_u8: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG with the standard
+    library alone (zlib + struct), so `--out x.png` needs no imaging
+    package: signature, IHDR, one zlib IDAT of filter-0 scanlines, IEND."""
+    img = np.ascontiguousarray(np.asarray(img_u8, np.uint8))
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got {img.shape}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], 1)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def load_jpeg(path: str) -> np.ndarray:
@@ -74,11 +76,12 @@ def load_jpeg(path: str) -> np.ndarray:
 
     The Go ImageTexture scales 16-bit RGBA() by 1/65535 (materials.go:184-192);
     8-bit JPEG data promoted to 16-bit is value*257/65535 == value/255, so
-    float [0,1] here matches.
+    float [0,1] here matches. Needs Pillow (optional: the default earth
+    texture is synthetic).
     """
-    if not HAS_PIL:  # pragma: no cover
-        raise RuntimeError("Pillow unavailable; cannot load JPEG textures")
-    img = _PILImage.open(path).convert("RGB")
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
     return np.asarray(img, np.float32) / 255.0
 
 

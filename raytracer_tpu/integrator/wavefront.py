@@ -9,7 +9,7 @@ The reference integrates radiance by recursion per ray
     hit, no scatter       -> emitted
     hit, scatter          -> emitted + attenuation ⊙ recurse(scattered)
 
-On TPU the recursion becomes an iterative wavefront over a whole ray batch:
+On the accelerator the recursion becomes an iterative wavefront over a whole ray batch:
 a `throughput` product replaces the attenuation multiply chain, `radiance`
 accumulates emitted/background terms, and an `alive` mask replaces early
 returns. Two loop flavors:
@@ -82,7 +82,7 @@ def _bounce_step(
     PRNG draw with injected uniforms — the hook the end-to-end GetColor
     oracle test uses to compare against a scalar reference per ray.
     `intersect_fn(scene, o, d) -> HitRecord` overrides the dense XLA
-    closest hit (large-scene Pallas intersectors)."""
+    closest hit (geometry.backend's kernel-backed intersector)."""
     key, sub = jax.random.split(state.key)
     ifn = intersect_fn or intersect_scene
     if getattr(ifn, "takes_bounce", False):
@@ -175,7 +175,6 @@ def trace(
     return_stats: bool = False,
     uniform_seq=None,
     intersect_fn=None,
-    first_bounce_intersect_fn=None,
     intersect_fn_differentiable: bool = False,
     fixed_trip_count: bool = False,
     return_tape: bool = False,
@@ -205,12 +204,9 @@ def trace(
     `uniform_seq` ((max_depth, N, UNIFORMS_PER_BOUNCE), optional): injected
     per-bounce shading uniforms instead of PRNG draws (oracle testing).
 
-    `intersect_fn` overrides the closest-hit backend for every bounce;
-    `first_bounce_intersect_fn` additionally peels bounce 0 out of the loop
-    with its own backend — the large-scene path feeds coherent camera rays
-    to the cluster-culled kernel there and dense Pallas afterwards. Neither
-    composes with differentiable=True (Pallas kernels have no VJP) UNLESS
-    the caller passes intersect_fn_differentiable=True, asserting the
+    `intersect_fn` overrides the closest-hit backend for every bounce. It
+    does not compose with differentiable=True (Pallas kernels have no VJP)
+    UNLESS the caller passes intersect_fn_differentiable=True, asserting the
     override routes no cotangent into a Pallas call (e.g.
     geometry.intersect.intersect_scene_pallas_diff, whose kernel runs on
     stop-gradient inputs and whose t is recomputed differentiably).
@@ -241,13 +237,8 @@ def trace(
     )
 
     assert intersect_fn_differentiable or not (
-        differentiable and (intersect_fn or first_bounce_intersect_fn)
+        differentiable and intersect_fn
     ), "Pallas intersector overrides have no VJP; use the default backend"
-    if first_bounce_intersect_fn is not None:
-        init = _bounce_step(
-            scene, packed, background, sky_gradient, init,
-            uniform_seq=uniform_seq, intersect_fn=first_bounce_intersect_fn,
-        )
 
     if differentiable:
         # Fixed-depth scan; checkpoint each bounce so the backward pass
@@ -264,13 +255,9 @@ def trace(
 
         final, _ = jax.lax.scan(scan_body, init, None, length=max_depth)
     elif fixed_trip_count:
-        # No data-dependent early exit: needed when per-device Pallas-call
-        # counts must match across a shard_map (interpreter mode barriers
-        # every call across devices; a device whose rays die early would
-        # make fewer calls and deadlock the rest). Total segments must equal
-        # the while_loop's max_depth — a peeled first bounce already counts.
-        steps = max_depth - (1 if first_bounce_intersect_fn is not None else 0)
-        final = jax.lax.fori_loop(0, steps, lambda _, s: step(s), init)
+        # No data-dependent early exit: every device of a shard_map runs
+        # the same number of bounces.
+        final = jax.lax.fori_loop(0, max_depth, lambda _, s: step(s), init)
     else:
         final = jax.lax.while_loop(
             lambda s: (s.bounce < max_depth) & jnp.any(s.alive),
@@ -302,8 +289,8 @@ class RegenState(NamedTuple):
     remaining: jnp.ndarray  # (N,) i32 — samples this lane still owes
     sample_k: jnp.ndarray  # (N,) i32 — index of the lane's current sample
     log: jnp.ndarray  # (3, K, N) — per-(sample-slot, lane) retired radiance
-    # (channel-major layout: the minor dim must be the lane axis — a minor
-    # dim of 3 would pad to the 128-lane tile and blow memory up 42x)
+    # (channel-major layout: the lane axis is minor, so every masked add
+    # and the fold read contiguous lane rows)
     key: jnp.ndarray
     segments: jnp.ndarray  # () i32 — total segments traced (perf metric)
     iters: jnp.ndarray  # () i32 — loop iterations (occupancy metric)
@@ -317,7 +304,7 @@ def regen_jump(n: int, n_pixels: int) -> int:
     sample ids sweep pixels, giving exactly spp samples per pixel.
 
     When n_pixels divides n (e.g. power-of-two images whose pixel count
-    divides the Pallas tile — 128x128, 64x64...), that default is ZERO and
+    divides a power-of-two wavefront — 128x128, 64x64...), that default is ZERO and
     would statically bind lanes to pixels (measured 2.7x more iterations:
     lanes stuck on glass-heavy pixels straggle). In that regime ANY advance
     keeps the schedule exact: per sample-row the active lanes [0, n) cover
@@ -331,79 +318,18 @@ def regen_jump(n: int, n_pixels: int) -> int:
     return j
 
 
-def pick_wavefront(
-    n_pixels: int,
-    spp: int,
-    max_slots: int,
-    lo: int = 1 << 16,
-    hi: int = 1 << 21,
-    coherent: bool = True,
-) -> int:
-    """Choose the persistent-path wavefront size so the per-sample pixel
-    jump (regen_jump = n mod n_pixels) is SMALL.
-
-    Why: lane L's sample k lands on pixel (L + k*jump) mod n_pixels, so a
-    (rows x 128)-lane kernel tile always covers contiguous 8K-pixel strips —
-    but with the naive size (smallest tile multiple holding the sample
-    budget) the jump is effectively random, and as lanes drain to different
-    sample slots a tile's strips scatter over the whole image. A small jump
-    keeps successive slots' strips ADJACENT, so the dynamic gather bounds in
-    the persistent kernel (winner-primitive chunks, image-texel chunks) stay
-    narrow. Measured round 3: earth 64 -> 150+ Mrays/s from this choice
-    alone (docs/PERF_NOTES.md).
-
-    Exactness: only jump = n mod n_pixels preserves exact per-pixel spp for
-    arbitrary n (contiguous global sample ids sweep pixels — see regen_jump),
-    so the jump is controlled by choosing n. Candidates are tile multiples in
-    [max(lo, ceil(total/max_slots)), hi] (slot cap = the retirement-log VMEM
-    budget); prefer the smallest n whose jump is under ~2% of the image
-    (samples-per-lane stays near the cap, which drains best), falling back
-    to looser thresholds, then to the smallest candidate.
-
-    coherent=False skips the jump optimization (plain smallest-fit sizing):
-    strip coherence only pays when the kernel scans a gather band — image
-    textures or >512 primitives — and the small jump costs ~3% occupancy on
-    incoherent scenes (measured on rand_spheres: 168 -> 164 Mrays/s)."""
-    from raytracer_tpu.ops import intersect_kernel as ik
-
-    tile = ik.DEFAULT_ROWS * ik.LANES
-    total = n_pixels * spp
-    min_n = max(lo, -(-total // max_slots))
-    if not coherent:
-        n = -(-min(min_n, hi) // tile) * tile
-        return int(min(max(n, lo), hi))
-    m_lo = -(-min_n // tile)
-    m_hi = max(m_lo, hi // tile)
-    cands = []
-    for m in range(m_lo, m_hi + 1):
-        n = m * tile
-        j = n % n_pixels
-        if j == 0:  # static lane->pixel binding measured 2.7x slower
-            continue
-        cands.append((j, n))
-    if not cands:
-        return min(max(min_n, lo), hi)
-    for frac in (0.02, 0.05, 0.15):
-        ok = [n for j, n in cands if j <= frac * n_pixels]
-        if ok:
-            return min(ok)
-    return min(n for _, n in cands)
-
-
 def strided_schedule(n_pixels: int, spp: int, wavefront_size: int):
     """Static layout of the strided per-lane sample queue.
 
     Lane L owns sample ids L, L+N, L+2N, ... (< n_pixels*spp); returns
-    (n, num_slots, jump) where `n` is the wavefront size rounded to Pallas
-    tiles, `num_slots` the max samples any lane owns, and `jump` the
-    per-regeneration pixel advance (regen_jump — guaranteed nonzero when a
-    lane owns more than one sample). All python ints (baked into kernels)."""
-    from raytracer_tpu.ops import intersect_kernel as ik
-
+    (n, num_slots, jump) where `n` is the wavefront size (capped at the
+    sample budget — the closest-hit kernel masks its own tail block, so no
+    rounding is needed), `num_slots` the max samples any lane owns, and
+    `jump` the per-regeneration pixel advance (regen_jump — guaranteed
+    nonzero when a lane owns more than one sample). All python ints (static
+    in the compiled loop)."""
     total_samples = n_pixels * spp
-    tile = ik.DEFAULT_ROWS * ik.LANES
     n = min(wavefront_size, total_samples)
-    n = -(-n // tile) * tile
     num_slots = -(-total_samples // n)  # ceil: max samples per lane
     return n, num_slots, regen_jump(n, n_pixels)
 
@@ -447,9 +373,7 @@ def _regen_bounce_epilogue(
     """Shared post-intersection epilogue of one regen-wavefront iteration:
     resolve+shade, background/emission accumulation (ray.go:41-53), depth
     budget (ray.go:33-35), russian roulette, and retirement into the dense
-    per-slot log. Both loop bodies (jnp/Pallas-intersect `body` and megakernel
-    `body_mk`) MUST run this exact code so they realize the same estimator;
-    only the front half (regen + intersection + uniform source) differs.
+    per-slot log.
 
     Returns (origin, direction, throughput, radiance, survives, depth, log).
     """
@@ -506,12 +430,7 @@ def render_wavefront_regen(
     russian_roulette: bool = True,
     rr_start_depth: int = 5,
     rr_max_q: float = 0.95,
-    use_pallas: bool = False,
-    use_megakernel: bool = False,
-    use_persistent: bool = False,
-    persistent_rows: int = 0,
-    cluster_table=None,
-    bilinear_stochastic: bool = False,
+    intersect=None,
     return_stats: bool = False,
 ):
     """Render with *path regeneration*: a fixed-size wavefront where a lane
@@ -533,8 +452,8 @@ def render_wavefront_regen(
     loop iterations: lanes stuck on glass-heavy pixels straggle).
 
     Retirement is scatter-free: sample k of lane L lands in a dense
-    (3, K, N) log at [:, k, L] via a masked add (bandwidth-bound, ~2 ms/iter at
-    1M lanes vs ~21 ms for a framebuffer scatter-add). Because
+    (3, K, N) log at [:, k, L] via a masked add (dense and contention-free,
+    where a framebuffer scatter-add would collide on shared pixels). Because
     pixel(L, k) = (L + k*N) mod n is affine, the log folds into the
     framebuffer *densely* afterwards: for each slot k, chunk-sum the lane
     axis modulo n and rotate by (k*N) mod n.
@@ -572,12 +491,7 @@ def render_wavefront_regen(
         russian_roulette=russian_roulette,
         rr_start_depth=rr_start_depth,
         rr_max_q=rr_max_q,
-        use_pallas=use_pallas,
-        use_megakernel=use_megakernel,
-        use_persistent=use_persistent,
-        persistent_rows=persistent_rows,
-        cluster_table=cluster_table,
-        bilinear_stochastic=bilinear_stochastic,
+        intersect=intersect,
         return_stats=return_stats,
     )
 
@@ -599,12 +513,7 @@ def regen_core(
     russian_roulette: bool = True,
     rr_start_depth: int = 5,
     rr_max_q: float = 0.95,
-    use_pallas: bool = False,
-    use_megakernel: bool = False,
-    use_persistent: bool = False,
-    persistent_rows: int = 0,
-    cluster_table=None,
-    bilinear_stochastic: bool = False,
+    intersect=None,
     return_stats: bool = False,
 ):
     """Run the regenerative wavefront loop over an explicit per-lane schedule
@@ -612,83 +521,28 @@ def regen_core(
     `schedule_arrays`) and fold the retirement log into a (n_pixels, 3)
     framebuffer of radiance sums.
 
+    `intersect(scene, origin, direction) -> (t, prim)` is the closest-hit
+    implementation; None takes the platform's (geometry.backend).
+
     This is the single-device core; `render_wavefront_regen` wraps it with
     the standard schedule, and `parallel.shard.render_regen_sharded` runs it
     per-device under shard_map (same compiled program on every device —
     devices differ only in schedule *data* and PRNG key)."""
     from raytracer_tpu.core.camera import camera_rays  # local: avoid cycle
-
-    from raytracer_tpu.geometry.intersect import closest_hit_t_prim, quad_derived
+    from raytracer_tpu.geometry.backend import intersectors
+    from raytracer_tpu.geometry.intersect import quad_derived
     from raytracer_tpu.materials.packed import primitive_resolve_table
-    from raytracer_tpu.ops import intersect_kernel as ik
 
     n_pixels = width * height
     n = init_remaining.shape[0]
+    closest_hit = intersect or intersectors().closest_hit
 
-    qd = quad_derived(scene)
-
-    # Strided schedule constants (python ints -> baked into the kernel).
+    # Strided schedule constants (python ints, static in the loop).
     jump = regen_jump(n, n_pixels)  # pixel advance per regeneration
     jump_px = jump % width
     jump_py = jump // width
 
-    if use_persistent:
-        # Whole-loop-in-kernel path: state stays in VMEM, tiles drain
-        # independently (see ops/persistent_kernel.py).
-        from raytracer_tpu.ops.persistent_kernel import (
-            pack_camera_scalars_bg,
-            pack_image_table,
-            pack_persistent_tables,
-            render_persistent_pallas,
-        )
-
-        sph_p, quad_p, res_p = pack_persistent_tables(scene, qd)
-        img_p = pack_image_table(scene) if scene.has_image else None
-        seed = jax.random.randint(key, (), 0, 1 << 30, jnp.int32)
-        log, segments, iters, _clusters_entered = render_persistent_pallas(
-            sph_p,
-            quad_p,
-            res_p,
-            pack_camera_scalars_bg(frame, background),
-            seed,
-            init_remaining.astype(jnp.int32),
-            init_px,
-            init_py,
-            img_p,
-            cluster_table,
-            width=width,
-            height=height,
-            jump_px=jump_px,
-            jump_py=jump_py,
-            num_slots=num_slots,
-            max_depth=max_depth,
-            rr_start=rr_start_depth if russian_roulette else max_depth,
-            rr_hi=rr_max_q,
-            sky_gradient=sky_gradient,
-            has_noise=scene.has_noise,
-            has_image=scene.has_image,
-            img_h=int(scene.images.shape[1]),
-            img_w=int(scene.images.shape[2]),
-            bilinear=scene.bilinear_textures,
-            bilinear_stochastic=bilinear_stochastic,
-            **({"rows": persistent_rows} if persistent_rows else {}),
-        )
-        return _fold_log(
-            log, num_slots, n, n_pixels, jump, segments, iters, return_stats
-        )
-
-    # Tables for the non-persistent paths (the persistent kernel above packs
-    # its own and uses none of these).
-    resolve_table = primitive_resolve_table(scene, qd)
-    sph_table = ik.pack_sphere_table(scene.sph_center, scene.sph_radius)
-    quad_table = ik.pack_quad_table(qd)
-    if use_pallas:
-        def intersect(o, d):
-            return ik.intersect_pallas(sph_table, quad_table, o, d)
-
-    else:
-        def intersect(o, d):
-            return closest_hit_t_prim(scene, o, d)
+    resolve_table = primitive_resolve_table(scene, quad_derived(scene))
     dtype = jnp.float32
 
     slot_ids = jax.lax.broadcasted_iota(jnp.int32, (num_slots, 1), 0)  # (K,1)
@@ -704,76 +558,6 @@ def regen_core(
         rr_max_q,
         slot_ids,
     )
-
-    if use_megakernel:
-        from raytracer_tpu.ops.wavefront_kernel import (
-            pack_camera_scalars,
-            wavefront_step_pallas,
-        )
-
-        cam_scalars = pack_camera_scalars(frame)
-        seed_base = jax.random.randint(key, (), 0, 1 << 30, jnp.int32)
-
-        def body_mk(s: RegenState) -> RegenState:
-            out = wavefront_step_pallas(
-                sph_table,
-                quad_table,
-                cam_scalars,
-                seed_base + s.iters * jnp.int32(1013904223),
-                s.origin,
-                s.direction,
-                s.active,
-                s.remaining,
-                s.px,
-                s.py,
-                s.sample_k,
-                width=width,
-                height=height,
-                jump_px=jump_px,
-                jump_py=jump_py,
-            )
-            grant = out["grant"]
-            origin = out["origin"]
-            direction = out["direction"]
-            g3 = grant[:, None]
-            throughput = jnp.where(g3, 1.0, s.throughput)
-            radiance = jnp.where(g3, 0.0, s.radiance)
-            depth = jnp.where(grant, 0, s.depth)
-            active = s.active | grant
-
-            uniforms = out["uniforms"]
-            origin, direction, throughput, radiance, survives, depth, log = (
-                epilogue(
-                    t_hit=out["t"],
-                    prim=out["prim"],
-                    origin=origin,
-                    direction=direction,
-                    uniforms=uniforms,
-                    rr_uniform=uniforms[:, 3],
-                    active=active,
-                    throughput=throughput,
-                    radiance=radiance,
-                    depth=depth,
-                    sample_k=out["sample_k"],
-                    log=s.log,
-                )
-            )
-            return RegenState(
-                origin=origin,
-                direction=direction,
-                throughput=throughput,
-                radiance=radiance,
-                active=survives,
-                depth=depth,
-                px=out["px"],
-                py=out["py"],
-                remaining=out["remaining"],
-                sample_k=out["sample_k"],
-                log=log,
-                key=s.key,
-                segments=s.segments + jnp.sum(active.astype(jnp.int32)),
-                iters=s.iters + 1,
-            )
 
     def body(s: RegenState) -> RegenState:
         key, k_regen, k_bounce, k_rr = jax.random.split(s.key, 4)
@@ -805,7 +589,7 @@ def regen_core(
         remaining = s.remaining - grant.astype(jnp.int32)
 
         # ---- one bounce (identical math to _bounce_step, fused path) ----
-        t_hit, prim = intersect(origin, direction)
+        t_hit, prim = closest_hit(scene, origin, direction)
         uniforms = jax.random.uniform(k_bounce, (n, UNIFORMS_PER_BOUNCE), dtype)
         rr_uni = jax.random.uniform(k_rr, (n,), dtype)
         origin, direction, throughput, radiance, survives, depth, log = epilogue(
@@ -857,7 +641,7 @@ def regen_core(
     )
     final = jax.lax.while_loop(
         lambda s: jnp.any(s.active | (s.remaining > 0)),
-        body_mk if use_megakernel else body,
+        body,
         init,
     )
     return _fold_log(
@@ -877,15 +661,6 @@ def _fold_log(log, num_slots, n, n_pixels, jump, segments, iters, return_stats):
     pad = chunks * n_pixels - n
     log = jnp.pad(log, ((0, 0), (0, 0), (0, pad)))
     per_slot = log.reshape(3, num_slots, chunks, n_pixels).sum(axis=2)  # (3,K,n)
-    # XLA:TPU miscompiles the fusion of [pad + reshape + chunk-sum] with the
-    # K-way roll-accumulate below when the wavefront is SMALLER than the
-    # pixel count (observed at 600x600, n=294912: the final slot's zero rows
-    # read as the previous slot's data, giving exactly spp+1 samples on the
-    # first K*n - total pixels; other shapes abort with opaque INTERNAL /
-    # FAILED_PRECONDITION launch errors). The barrier materializes per_slot
-    # and splits that fusion — verified to restore exact per-pixel sample
-    # counts (tests/test_integrator.py::test_fold_log_small_wavefront_*).
-    per_slot = jax.lax.optimization_barrier(per_slot)
     fb = jnp.zeros((n_pixels, 3), log.dtype)
     for k in range(num_slots):
         offset = (k * jump) % n_pixels

@@ -65,8 +65,7 @@ def resolve_and_shade(
     """Fused hit epilogue + material shading from the winning (t, prim).
 
     ONE row gather on the extended resolve table replaces the ~9 separate
-    per-field gathers of resolve_hits + shade (measured ~1 ms each in-loop
-    at 512K lanes on v5e — they dominated the bounce, not the intersection).
+    per-field gathers of resolve_hits + shade.
     Math identical to geometry.intersect.resolve_hits + shade.
     """
     from raytracer_tpu.geometry.intersect import _sphere_uv
@@ -95,7 +94,7 @@ def resolve_and_shade(
     prim = jnp.where(hit, prim, 0)
     # Single row gather, then ONE transpose to channel-major: the ~15 column
     # reads below become contiguous (N,) row slices instead of stride-27
-    # column slices (measured 0.7 ms/iter of pure slicing at 512K lanes).
+    # column slices.
     row_t = table[prim].T  # (N_RESOLVE_COLS, N)
 
     def col(c):

@@ -1,8 +1,8 @@
 """Packed per-primitive shading table: one gather per bounce.
 
-TPU irregular gathers cost ~5-10 ms per (N,)-indexed lookup at wavefront
-sizes (measured on v5e); the naive shading path needed ~10 of them
-(mat_type/fuzz/ior/albedo/tex_type/...), dominating the bounce. Instead we
+Each irregular (N,)-indexed gather at wavefront sizes is a separate pass
+over device memory, and the naive shading path needed ~10 of them
+(mat_type/fuzz/ior/albedo/tex_type/...). Instead we
 resolve the reference's two-level indirection (primitive -> Material ->
 Texture, materials.go:9-17/147-149) into a single (P, COLS) f32 row per
 primitive at trace setup, and the shade kernel does ONE row gather by the
@@ -29,9 +29,8 @@ COL_TIMAGE = 11  # image index (as float)
 N_COLS = 12
 
 # Geometry columns of the *resolve* table (primitive_resolve_table): the hit
-# epilogue (point/normal/uv) reads these from the same single row gather —
-# separate sph_center/quad-derived gathers measured ~1 ms each in-loop and
-# dominated the bounce.
+# epilogue (point/normal/uv) reads these from the same single row gather
+# instead of separate sph_center/quad-derived gathers per bounce.
 COL_SPH_CENTER = slice(12, 15)  # sphere center (zeros for quads)
 COL_SPH_RADIUS = 15  # signed radius (hollow-glass negative)
 COL_Q_NORMAL = slice(16, 19)  # quad unit plane normal

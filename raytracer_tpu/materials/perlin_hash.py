@@ -1,12 +1,10 @@
-"""Procedural (hash-generated) Perlin tables: gather-free noise on TPU.
+"""Procedural (hash-generated) Perlin tables: gather-free noise.
 
-XLA's TPU lowering of tiny-table gathers is pathological (~3.5 ms for one
-(512K,) gather from a 256-entry table); 7-octave turbulence does 98 of them
-per bounce, which measured 0.8 Mrays/s on the perlin scene vs 159 Mrays/s
-for rand_spheres (docs/PERF_NOTES.md round 2). Instead of *gathering* from
-randomly-filled tables, the scene's Perlin tables are GENERATED by cheap
-integer hash functions; the hot path then recomputes table entries with
-pure VPU integer math (zero gathers), while the table arrays remain on the
+7-octave turbulence does 98 tiny-table gathers per lane per bounce when the
+tables are gathered. Instead of *gathering* from randomly-filled tables,
+the scene's Perlin tables are GENERATED by cheap integer hash functions;
+the hot path then recomputes table entries with pure elementwise integer
+math (zero gathers), while the table arrays remain on the
 Scene so the scalar NumPy oracle and the table-gather path produce
 bit-identical results.
 

@@ -33,9 +33,8 @@ def perlin_noise(scene: Scene, p):
     Two evaluation strategies, bit-identical results:
     * scene.perlin_procedural (the production default): table entries are
       RECOMPUTED per lane with integer hashes (materials/perlin_hash.py) —
-      zero gathers. XLA's lowering of tiny-table gathers is ~3.5 ms per
-      (512K,) gather on TPU, which made noise scenes ~200x slower than
-      solid-color ones (docs/PERF_NOTES.md round 2).
+      zero gathers (7 octaves x 8 corners would otherwise be 56+ tiny-table
+      gathers per lane per bounce).
     * otherwise: 8 gathers over the (256, 3) gradient table (works for any
       table contents, e.g. the reference's rand-filled ones).
     """
@@ -144,8 +143,7 @@ def eval_texture_packed(
     scene: Scene, ttype, c0, c1, scale, img_id, u, v, point, *, bilinear: bool = False
 ):
     """Evaluate texture color for each lane from *pre-gathered* per-lane
-    fields (see materials/packed.py — avoids per-field table gathers, which
-    dominate bounce time on TPU).
+    fields (see materials/packed.py — avoids one table gather per field).
 
     Args:
       ttype: (N,) texture type enum (float or int).

@@ -1,8 +1,10 @@
 """ctypes bindings to the C++ native runtime (cpp/libraytpu.so).
 
-Native host-side components (scene compiler / image encode) with automatic
-build-on-first-use and NumPy fallbacks when no toolchain is available — the
-device compute path (Pallas/XLA) is unaffected either way.
+Native host-side components (scene compiler / image encode) built from the
+tracked source on first use in each process (`make` rebuilds whenever
+raytpu_native.cc or the Makefile is newer than the library), with NumPy
+fallbacks when no toolchain is available or the build fails — the device
+compute path (Pallas/XLA) is unaffected either way.
 """
 
 from __future__ import annotations
@@ -24,16 +26,18 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _CPP_DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            return None
+    # Always ask make: it rebuilds a library older than its source, and a
+    # failed build (or no toolchain) means no native library at all rather
+    # than a stale one.
+    try:
+        subprocess.run(
+            ["make", "-C", _CPP_DIR],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

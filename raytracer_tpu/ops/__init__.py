@@ -1,1 +1,1 @@
-"""Pallas TPU kernels (the native compute tier of the framework)."""
+"""Pallas-Triton kernels for NVIDIA GPUs (the native compute tier)."""

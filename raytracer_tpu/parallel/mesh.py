@@ -1,16 +1,18 @@
 """Device-mesh helpers for multi-chip / multi-host rendering.
 
 The reference's only parallelism is a goroutine-per-pixel worker pool
-(camera.go:167-175, 202-219). The TPU-native replacement (SURVEY.md §2.2):
+(camera.go:167-175, 202-219). The accelerator replacement (SURVEY.md §2.2):
 a `jax.sharding.Mesh` whose axes shard the wavefront ray batch —
 
 * `tiles`: image tiles / pixel blocks (data parallel over pixels);
 * `samples`: the spp budget (sample parallel — the reference has none,
   its spp loop is sequential per pixel, camera.go:256-260).
 
-On a pod slice, `tiles` is laid over DCN (hosts) and `samples` over ICI
-(chips), so the only cross-host traffic is the final per-pixel sum and the
-`psum` of scene-parameter gradients.
+The cards of one GPU host reach each other all to all over NVLink, so the
+mesh shape follows the algorithm alone. Across hosts (one process per host,
+each driving its local cards) `samples` stays within a host, so the only
+cross-host traffic is the final per-pixel sum and the `psum` of
+scene-parameter gradients.
 """
 
 from __future__ import annotations
@@ -30,9 +32,9 @@ def make_mesh(n_devices: int | None = None, sample_parallel: int = 1) -> Mesh:
     keys); the remainder shard the pixel axis.
     """
     # Group by host first: jax.devices() order is not guaranteed to keep a
-    # host's chips contiguous on real pod topologies, and a row-major reshape
-    # of an interleaved order would lay the `samples` axis across hosts —
-    # every per-pixel psum would then ride DCN instead of ICI. Sorting by
+    # host's cards contiguous, and a row-major reshape of an interleaved
+    # order would lay the `samples` axis across hosts — every per-pixel psum
+    # would then cross the network instead of NVLink. Sorting by
     # (process_index, id) makes each reshape row (one tile / sample group)
     # host-local whenever sample_parallel <= local_device_count.
     devices = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
@@ -54,7 +56,7 @@ def make_mesh(n_devices: int | None = None, sample_parallel: int = 1) -> Mesh:
 
 def multihost_mesh(sample_parallel: int | None = None) -> Mesh:
     """Mesh for a multi-host run (call after jax.distributed.initialize):
-    tiles across hosts (DCN), samples across each host's chips (ICI)."""
+    tiles across hosts, samples across each host's local cards."""
     n_local = jax.local_device_count()
     return make_mesh(
         jax.device_count(),

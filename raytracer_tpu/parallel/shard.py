@@ -4,9 +4,9 @@ The image's pixel axis shards over the `tiles` mesh axis and the spp budget
 over the `samples` axis; each device traces its own wavefront locally (the
 wavefront loop needs no cross-device communication — rays never migrate), and
 the per-pixel sample sum reduces over the `samples` axis. This is the
-TPU-native replacement for the reference's worker pool + ordered channel
+accelerator replacement for the reference's worker pool + ordered channel
 fan-in (camera.go:167-230): ordering is free (indexed writes) and "fan-in" is
-an XLA collective riding ICI.
+one XLA collective (NCCL over NVLink on a GPU host).
 """
 
 from __future__ import annotations
@@ -17,10 +17,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from raytracer_tpu.core.camera import Camera, RenderSettings, camera_frame, camera_rays
 from raytracer_tpu.geometry.scene import Scene
@@ -142,11 +139,7 @@ def sharded_samples_per_pass(spp: int, num_pixels: int, mesh: Mesh, target_rays:
         "wavefront_per_device",
         "max_depth",
         "sky_gradient",
-        "use_pallas",
-        "use_megakernel",
-        "use_persistent",
         "rr_max_q",
-        "bilinear_stochastic",
         "return_stats",
     ),
 )
@@ -162,32 +155,25 @@ def render_regen_sharded(
     wavefront_per_device: int,
     max_depth: int,
     sky_gradient: bool,
-    use_pallas: bool = False,
-    use_megakernel: bool = False,
-    use_persistent: bool = False,
     rr_max_q: float = 0.95,
-    cluster_table=None,
-    bilinear_stochastic: bool = False,
     return_stats: bool = False,
 ):
     """The production fast path, sharded: every device runs the full
-    regenerative wavefront loop (persistent Pallas kernel / megakernel / jnp
-    body — same `regen_core` as single-device) on its own slice of the spp
-    budget, then the per-pixel partial sums reduce over the mesh with one
-    `psum` riding ICI.
+    regenerative wavefront loop (the same `regen_core` as single-device) on
+    its own slice of the spp budget, then the per-pixel partial sums reduce
+    over the mesh with one `psum`.
 
     The spp budget splits as evenly as integers allow across all D = tiles x
     samples devices; devices differ only in their per-lane sample-queue
     *data* (`init_remaining`) and PRNG key — it is one compiled SPMD program
-    (the TPU-native analog of the reference's identical workers pulling from
-    a shared pixel queue, camera.go:167-230). Rays never migrate between
+    (the analog of the reference's identical workers pulling from a shared
+    pixel queue, camera.go:167-230). Rays never migrate between
     devices; the wavefront loop itself needs zero communication.
 
     Returns the (height, width, 3) framebuffer of radiance *sums* over spp
     (divide by spp for the mean); with return_stats also (total_segments,
     max_per_device_iters, summed_iters) — max/sum agreeing means perfect
-    load balance (the scaling-efficiency proxy without real multi-chip
-    hardware).
+    load balance.
     """
     n_pixels = width * height
     n_dev = mesh.devices.size
@@ -221,11 +207,6 @@ def render_regen_sharded(
             max_depth=max_depth,
             sky_gradient=sky_gradient,
             rr_max_q=rr_max_q,
-            use_pallas=use_pallas,
-            use_megakernel=use_megakernel,
-            use_persistent=use_persistent,
-            cluster_table=cluster_table,  # replicated closure capture
-            bilinear_stochastic=bilinear_stochastic,
             return_stats=True,
         )
         axes = (TILE_AXIS, SAMPLE_AXIS)
@@ -250,182 +231,6 @@ def render_regen_sharded(
     return fb
 
 
-@partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "width", "height", "k", "per_dev", "max_depth", "sky_gradient"
-    ),
-)
-def _large_scene_pass_sharded(
-    scene: Scene,
-    tables,
-    cam: Camera,
-    key,
-    *,
-    mesh: Mesh,
-    width: int,
-    height: int,
-    k: int,
-    per_dev: int,
-    max_depth: int,
-    sky_gradient: bool,
-):
-    """One sharded pass of the large-scene renderer (the multi-device analog
-    of render/driver._large_scene_pass): the pass's k*n camera rays split
-    into contiguous per-device blocks — each block stays pixel-ordered, so
-    the cluster-culled camera intersector keeps its coherence win on every
-    device — and bounce rays stay device-local on the dense Pallas kernel.
-    Rays never migrate and the pass contains NO collectives (outputs stay
-    sharded; see the note inside `local`)."""
-    from raytracer_tpu.geometry.intersect import (
-        intersect_scene_culled,
-        intersect_scene_pallas_tables,
-    )
-
-    n = width * height
-    n_dev = mesh.devices.size
-    frame = camera_frame(cam, width, height)
-    n_pad = per_dev * n_dev
-    ray = jax.lax.broadcasted_iota(jnp.int32, (n_pad, 1), 0)[:, 0]
-    pix = jnp.where(ray < k * n, ray % n, -1)  # -1 = padding lane
-
-    def local(pix_s, key):
-        dev = jax.lax.axis_index(TILE_AXIS) * mesh.shape[SAMPLE_AXIS] + jax.lax.axis_index(
-            SAMPLE_AXIS
-        )
-        key_cam, key_trace = jax.random.split(jax.random.fold_in(key, dev))
-        pix_l = pix_s[0]
-        valid = pix_l >= 0
-        uni = jax.random.uniform(key_cam, (per_dev, 4), jnp.float32)
-        px = jnp.where(valid, pix_l % width, 0)
-        py = jnp.where(valid, pix_l // width, 0)
-        o, d = camera_rays(frame, px, py, uni)
-        o = jnp.where(valid[:, None], o, jnp.float32(1e7))
-        d = jnp.where(valid[:, None], d, jnp.float32(1.0))
-        radiance, segs = trace(
-            scene,
-            o,
-            d,
-            key_trace,
-            cam.background,
-            max_depth=max_depth,
-            sky_gradient=sky_gradient,
-            return_stats=True,
-            # Same Pallas-call count on every device (see trace's note): a
-            # device whose rays all die early must still step to max_depth.
-            fixed_trip_count=True,
-            intersect_fn=lambda sc, oo, dd: intersect_scene_pallas_tables(
-                sc, tables, oo, dd
-            ),
-            first_bounce_intersect_fn=lambda sc, oo, dd: intersect_scene_culled(
-                sc, tables, oo, dd
-            ),
-        )
-        radiance = jnp.where(valid[:, None], radiance, 0.0)
-        # No collective at all: rays are disjoint, so the framebuffer
-        # reassembles by index and segment counts sum on the host (a psum
-        # here also deadlocks the CPU in-process communicator under Pallas
-        # interpreter mode at 8 devices).
-        return radiance[None], segs[None]
-
-    # Rays shard as (n_dev, per_dev) blocks over the flattened mesh so each
-    # device sees one contiguous, pixel-coherent span.
-    # Outputs stay fully sharded; the caller assembles on the host. Keeping
-    # even the k-sample reduction out of the jitted program means this pass
-    # contains ZERO cross-device ops (and a post-shard_map reduce over the
-    # sharded axis deadlocks the CPU in-process rendezvous under Pallas
-    # interpreter mode: waiting device threads starve the serialized
-    # interpret callbacks).
-    return shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P((TILE_AXIS, SAMPLE_AXIS)), P()),
-        out_specs=(
-            P((TILE_AXIS, SAMPLE_AXIS)),
-            P((TILE_AXIS, SAMPLE_AXIS)),
-        ),
-        check_vma=False,
-    )(pix.reshape(n_dev, per_dev), key)
-
-
-def render_large_scene_sharded(
-    scene: Scene,
-    cam: Camera,
-    settings: RenderSettings,
-    mesh: Mesh,
-    *,
-    seed: int = 0,
-    progress: bool = False,
-    metrics=None,
-) -> jnp.ndarray:
-    """Sharded pass loop for scenes past LARGE_SCENE_PRIMS: the multi-device
-    version of render/driver._render_large_scene (BVH-cluster culled camera
-    rays + dense Pallas bounces on every device)."""
-    from raytracer_tpu.geometry.intersect import build_large_scene_tables
-    from raytracer_tpu.ops.culled_kernel import CULL_ROWS
-    from raytracer_tpu.ops.intersect_kernel import LANES
-    from raytracer_tpu.render.driver import samples_per_pass_for
-
-    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
-    n = w * h
-    tables = build_large_scene_tables(scene)  # host-side BVH clustering, once
-    # The ray budget per pass scales with the mesh: per-DEVICE memory is the
-    # real bound and per_dev shrinks with n_dev, so a fixed single-device
-    # target would leave the host pass loop (and its per-pass device->host
-    # fetch) unchanged as devices are added.
-    from raytracer_tpu.render.driver import DEFAULT_TARGET_RAYS_PER_PASS
-
-    k = samples_per_pass_for(
-        spp, n, DEFAULT_TARGET_RAYS_PER_PASS * mesh.devices.size
-    )
-    passes = spp // k
-    tile = CULL_ROWS * LANES
-    n_dev = mesh.devices.size
-    per_dev = _pad_to(-(-(k * n) // n_dev), tile)
-    import numpy as np
-
-    key = jax.random.PRNGKey(seed)
-    n_pad = per_dev * n_dev
-    # Accumulate on device in the sharded layout (each pass produces the
-    # same (n_dev, per_dev, 3) sharding, so the add is collective-free) and
-    # fetch ONCE at the end: a per-pass np.asarray would serialize every
-    # device->host transfer with the next pass's dispatch, defeating JAX's
-    # async pipeline exactly like the single-device _render_large_scene
-    # avoids.
-    acc = None
-    seg_parts = []  # sharded device values; synced once at the end
-    for p in range(passes):
-        radiance, segs = _large_scene_pass_sharded(
-            scene,
-            tables,
-            cam,
-            jax.random.fold_in(key, p),
-            mesh=mesh,
-            width=w,
-            height=h,
-            k=k,
-            per_dev=per_dev,
-            max_depth=settings.max_depth,
-            sky_gradient=settings.sky_gradient,
-        )
-        acc = radiance if acc is None else acc + radiance
-        seg_parts.append(segs)
-        if metrics is not None:
-            metrics.update((p + 1) * k)
-        if progress:
-            print(f"pass {p + 1}/{passes}", flush=True)
-    # Host-side assembly (one fetch): fold the k sample layers of the
-    # disjoint per-device blocks into the framebuffer.
-    rad = np.asarray(acc).reshape(n_pad, 3)[: k * n]
-    if metrics is not None:
-        metrics.update(
-            passes * k,
-            segments=int(sum(np.asarray(s).sum() for s in seg_parts)),
-            iters=passes,
-        )
-    return jnp.asarray(rad.reshape(k, n, 3).sum(axis=0).reshape(h, w, 3) / np.float32(spp))
-
-
 def render_image_sharded(
     scene: Scene,
     cam: Camera,
@@ -439,14 +244,8 @@ def render_image_sharded(
     metrics=None,
     checkpoint_path: str | None = None,
     max_chunks: int | None = None,
-    bilinear_stochastic: bool | None = None,
 ) -> jnp.ndarray:
     """Full sharded render; returns linear mean radiance (H, W, 3).
-
-    bilinear_stochastic: None (default) uses the production single-tap
-    stochastic filter whenever the persistent kernel serves the render;
-    False forces the deterministic 4-tap reference filter (advisor r4 —
-    the parity mode must stay reachable from the top-level API).
 
     regenerative=True (default) runs the production fast path on every
     device (`render_regen_sharded`); False keeps the simple per-pass batch
@@ -471,38 +270,8 @@ def render_image_sharded(
     key = jax.random.PRNGKey(seed)
 
     if regenerative:
-        from raytracer_tpu.ops.persistent_kernel import scene_supports_persistent
-        from raytracer_tpu.render.driver import (
-            CLUSTERED_SCENE_PRIMS,
-            LARGE_SCENE_PRIMS,
-            cluster_for_render,
-            regen_max_slots,
-            regen_spp_chunk,
-        )
+        from raytracer_tpu.render.driver import REGEN_MAX_SLOTS, regen_spp_chunk
 
-        on_tpu = jax.default_backend() == "tpu"
-        n_prims = scene.num_spheres + scene.num_quads
-        supports = scene_supports_persistent(scene)
-        # Large scenes the persistent kernel can shade run the SAME sharded
-        # regen path with in-kernel cluster culling (round 3 — one code path
-        # for every scale); only unsupported-texture large scenes dispatch
-        # the fallback sharded per-pass renderer (culled camera rays + dense
-        # Pallas bounces, zero collectives).
-        large = n_prims > LARGE_SCENE_PRIMS
-        if large and on_tpu and not supports:
-            if checkpoint_path:
-                raise ValueError(
-                    "checkpointing is not supported on the sharded "
-                    "large-scene fallback path (unsupported-texture scene)"
-                )
-            return render_large_scene_sharded(
-                scene, cam, settings, mesh, seed=seed,
-                progress=progress, metrics=metrics,
-            )
-        use_persistent = on_tpu and supports
-        cluster_table = None
-        if use_persistent and n_prims > CLUSTERED_SCENE_PRIMS:
-            scene, cluster_table = cluster_for_render(scene, cam)
         n_dev = mesh.devices.size
         n = w * h
         wavefront = int(
@@ -510,34 +279,18 @@ def render_image_sharded(
         )
         # Same chunk-sizing rule as render_image, scaled by the device count
         # (each device's share of a chunk is ceil(spp_chunk / n_dev)).
-        img_texels = (
-            int(
-                scene.images.shape[0]
-                * scene.images.shape[1]
-                * scene.images.shape[2]
-            )
-            if scene.has_image
-            else 0
+        spp_chunk = regen_spp_chunk(
+            spp, n, wavefront, REGEN_MAX_SLOTS, n_dev=n_dev
         )
-        max_slots = regen_max_slots(
-            use_persistent,
-            scene.has_noise,
-            scene.num_spheres + scene.num_quads,
-            img_texels,
-        )
-        spp_chunk = regen_spp_chunk(spp, n, wavefront, max_slots, n_dev=n_dev)
         if metrics is not None:
             from raytracer_tpu.integrator.wavefront import strided_schedule
-            from raytracer_tpu.ops.persistent_kernel import DEFAULT_ROWS, LANES
 
             per_dev_spp = -(-min(spp_chunk, spp) // n_dev)
             n_lanes, num_slots, _ = strided_schedule(n, per_dev_spp, wavefront)
             # Occupancy basis is per-device lanes (iters below SUM across
             # devices, so segments / (iters * lanes) stays comparable to the
             # single-device number).
-            metrics.wavefront_lanes = (
-                DEFAULT_ROWS * LANES if use_persistent else n_lanes
-            )
+            metrics.wavefront_lanes = n_lanes
             metrics.retirement_log_mb = 3 * num_slots * n_lanes * 4 / 2**20
         acc = jnp.zeros((h, w, 3), jnp.float32)
         done = 0
@@ -559,8 +312,7 @@ def render_image_sharded(
                     tuple(mesh.axis_names),
                     tuple(int(s) for s in mesh.devices.shape),
                     wavefront,
-                    on_tpu,
-                    use_persistent,
+                    jax.default_backend(),
                 ),
             )
             ck = load_checkpoint(checkpoint_path)
@@ -595,19 +347,6 @@ def render_image_sharded(
                     wavefront_per_device=wavefront,
                     max_depth=settings.max_depth,
                     sky_gradient=settings.sky_gradient,
-                    use_pallas=on_tpu,
-                    use_megakernel=on_tpu and not use_persistent,
-                    use_persistent=use_persistent,
-                    rr_max_q=0.75 if use_persistent else 0.95,
-                    cluster_table=cluster_table,
-                    # Same production stochastic-bilinear default as
-                    # render_image (ops/persistent_kernel round-4 note);
-                    # callers may force the deterministic 4-tap filter.
-                    bilinear_stochastic=(
-                        use_persistent
-                        if bilinear_stochastic is None
-                        else (bilinear_stochastic and use_persistent)
-                    ),
                     return_stats=metrics is not None,
                 )
                 if metrics is not None:
@@ -648,8 +387,7 @@ def render_image_sharded(
 
     if checkpoint_path:
         # The per-pass fallback has no chunk checkpoints; refuse loudly
-        # instead of silently rendering unresumably (review r3 — the
-        # large-scene fallback above already does).
+        # instead of silently rendering unresumably.
         raise ValueError(
             "checkpointing requires the regenerative sharded path "
             "(regenerative=True); the per-pass fallback does not checkpoint"

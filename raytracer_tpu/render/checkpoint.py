@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 from raytracer_tpu.core.camera import Camera, RenderSettings
 from raytracer_tpu.geometry.scene import Scene
-from raytracer_tpu.render.driver import LARGE_SCENE_PRIMS, render_regen
+from raytracer_tpu.render.driver import render_regen
 
 CHECKPOINT_VERSION = 2
 
@@ -154,18 +154,18 @@ def render_with_checkpoints(
     w, h, spp = settings.width, settings.height, settings.samples_per_pixel
     n = w * h
     wavefront = int(min(max(n, 1 << 16), target_rays_per_pass))
-    on_tpu = jax.default_backend() == "tpu"
-    use_megakernel = on_tpu and scene.num_spheres + scene.num_quads <= LARGE_SCENE_PRIMS
     if spp_per_chunk is None:
         # Prefer a divisor of spp: a trailing short chunk is a different
-        # static spp for the jitted program — a second minute-scale remote
-        # compile (same rationale as render_image's divisor search).
+        # static spp for the jitted program — a second compile (same
+        # rationale as render_image's divisor search).
         cap = max(1, min(spp, (64 * wavefront) // max(1, n)))
         spp_per_chunk = next((k for k in range(cap, 0, -1) if spp % k == 0), cap)
 
     fingerprint = config_fingerprint(
         scene, cam, settings, spp_per_chunk, seed,
-        extra=(wavefront, on_tpu, use_megakernel),
+        # The platform picks the closest-hit implementation, whose t can
+        # differ in the last bits: a checkpoint resumes on its own platform.
+        extra=(wavefront, jax.default_backend()),
     )
     done, acc, chunk_idx = 0, jnp.zeros((h, w, 3), jnp.float32), 0
     if checkpoint_path:
@@ -203,11 +203,6 @@ def render_with_checkpoints(
                 wavefront_size=wavefront,
                 max_depth=settings.max_depth,
                 sky_gradient=settings.sky_gradient,
-                use_pallas=on_tpu,
-                # Past LARGE_SCENE_PRIMS the megakernel's in-kernel dense
-                # loop crawls (driver.py's large-scene note); fall back to
-                # the size-robust Pallas-intersect + XLA-shade wavefront.
-                use_megakernel=use_megakernel,
             )
             acc = acc + out * jnp.float32(step_spp)
             done += step_spp

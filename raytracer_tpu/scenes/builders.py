@@ -92,8 +92,7 @@ def earth(
     a missing blob in this mount, so by default a deterministic synthetic
     earth-like texture stands in; pass `texture_path` to use a real JPEG.
     tex_height/tex_width size the synthetic stand-in — (512, 1024) matches
-    the real earthmap.jpg's resolution (the round-5 in-kernel texel budget
-    covers it; ops/persistent_kernel.MAX_IMAGE_TEXELS)."""
+    the real earthmap.jpg's resolution."""
     cam, settings = make_camera(
         16.0 / 9.0,
         width,
@@ -248,9 +247,9 @@ def quad_field(
     bucket: bool = False,
 ):
     """Large field of small tilted quads (default 8K) — the quad analog of
-    rand_spheres_large for the cluster-culled persistent path (round 4;
-    the reference BVH accepts any Hittable including quads via their padded
-    AABBs, bvh.go:132-141, hittables.go:161). Not a reference scene."""
+    rand_spheres_large (the reference BVH accepts any Hittable including
+    quads via their padded AABBs, bvh.go:132-141, hittables.go:161). Not a
+    reference scene."""
     n_quads = n_spheres
     cam, settings = make_camera(
         aspect,
@@ -306,10 +305,9 @@ def rand_spheres_large(
     bucket: bool = False,
 ):
     """Scaled-up random-sphere field (n_spheres on a grid, default 10K) —
-    the workload for the BVH-cluster large-scene render path
-    (render/driver._render_large_scene; the scale analog of the reference's
-    BVH acceleration, bvh.go:220-249). Not a reference scene; defaults are
-    sized for a practical render, override with --spp/--max-depth."""
+    the scale workload the reference's BVH acceleration exists for
+    (bvh.go:220-249). Not a reference scene; defaults are sized for a
+    practical render, override with --spp/--max-depth."""
     cam, settings = make_camera(
         aspect,
         width,

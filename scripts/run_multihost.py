@@ -1,13 +1,18 @@
-"""Multi-host render launcher.
+"""Multi-host render launcher: one process per host, each driving its
+local GPUs.
 
-On a TPU pod slice, run this same script on every host (e.g. with
-`gcloud ... tpu-vm ssh --worker=all`); `jax.distributed.initialize()`
-discovers the topology from the TPU environment. The mesh lays image tiles
-across hosts (DCN) and the sample budget across each host's chips (ICI) —
-see raytracer_tpu/parallel/mesh.py. Host 0 assembles and writes the image.
+Run this same script once on every host with the same --coordinator
+(host:port of process 0), --num-processes and a distinct --process-id;
+nothing in the environment tells JAX of the cluster, so all three are
+required for a multi-host run. Without --coordinator it renders on the
+local host's cards alone. The mesh lays image tiles across hosts and the
+sample budget across each host's cards — see raytracer_tpu/parallel/mesh.py.
+Process 0 assembles and writes the image.
 
 Usage (per host):
-    python scripts/run_multihost.py --scene rand_spheres --spp 500 --out out/mh.png
+    python scripts/run_multihost.py --scene rand_spheres --spp 500 \
+        --coordinator host0:12345 --num-processes 2 --process-id 0 \
+        --out out/mh.png
 """
 
 from __future__ import annotations
@@ -30,14 +35,14 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="out/multihost.png")
-    # Local validation without a pod: N CPU processes on one machine stand
-    # in for N hosts (each with --local-devices virtual chips) — the same
-    # jax.distributed + global-mesh code path as a real slice, with gloo
-    # over localhost in place of DCN.
     ap.add_argument("--coordinator", default=None,
-                    help="host:port for local multi-process testing")
+                    help="host:port of process 0 (multi-host runs)")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
+    # Local validation without several hosts: N CPU processes on one
+    # machine stand in for N hosts (each with --local-devices virtual
+    # devices) — the same jax.distributed + global-mesh code path, with
+    # gloo over localhost as the transport.
     ap.add_argument("--local-devices", type=int, default=None,
                     help="virtual CPU devices per process (local testing)")
     ap.add_argument("--sample-parallel", type=int, default=None,
@@ -48,19 +53,20 @@ def main() -> None:
                     "independent of how devices split across processes")
     args = ap.parse_args()
 
-    if args.coordinator is not None:
+    if args.local_devices is not None:
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={args.local_devices or 4}"
+            + f" --xla_force_host_platform_device_count={args.local_devices}"
         ).strip()
         jax.config.update("jax_platforms", "cpu")
+    if args.coordinator is not None:
+        if args.num_processes is None or args.process_id is None:
+            ap.error("--coordinator needs --num-processes and --process-id")
         jax.distributed.initialize(
             args.coordinator,
             num_processes=args.num_processes,
             process_id=args.process_id,
         )
-    else:
-        jax.distributed.initialize()  # no-op args on TPU pods
 
     from raytracer_tpu.imgio.image import write_png
     from raytracer_tpu.parallel.mesh import multihost_mesh

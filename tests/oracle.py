@@ -3,7 +3,7 @@ truth in tests (SURVEY.md §4: the reference itself has no tests; its formulas,
 cited by file:line below, are the spec).
 
 This is intentionally a *naive, scalar, branchy* implementation — the opposite
-of the TPU design — so that agreement between the two is meaningful.
+of the batched device design — so that agreement between the two is meaningful.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from raytracer_tpu.core.camera import camera_frame, camera_rays, make_camera
-from tests.oracle import OracleCamera
+from oracle import OracleCamera
 
 
 def _compare(aspect, width, **kw):

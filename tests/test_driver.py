@@ -45,6 +45,19 @@ def _tiny_scene():
     return b.build(), cam, settings
 
 
+def test_png_writer_roundtrip(tmp_path, rng):
+    """write_png needs only the standard library; a PNG decoder reads the
+    exact pixels back."""
+    import imageio.v3 as iio
+
+    from raytracer_tpu.imgio.image import write_png
+
+    img = rng.integers(0, 256, (7, 11, 3), dtype=np.uint8)
+    path = str(tmp_path / "sub" / "x.png")
+    write_png(path, img)
+    np.testing.assert_array_equal(iio.imread(path), img)
+
+
 def test_render_deterministic_and_pass_split_invariant():
     scene, cam, settings = _tiny_scene()
     a = render_image(scene, cam, settings, seed=3)
@@ -99,35 +112,21 @@ def test_device_memory_stats_shape():
         assert v >= 0
 
 
-def test_regen_slot_cap_scoped_to_persistent_kernel():
-    """The 40-slot noise cap is a persistent-kernel VMEM constraint; the
-    megakernel/XLA paths must keep 64 (sixth-review finding: the two copies
-    of this rule in driver/shard had diverged)."""
-    from raytracer_tpu.render.driver import regen_max_slots, regen_spp_chunk
+def test_regen_plan_chunking():
+    """Wavefront and spp-chunk sizing of the regenerative render: at least
+    one full image of lanes (capped), and chunks within REGEN_MAX_SLOTS
+    samples per lane, preferring a divisor of spp."""
+    from raytracer_tpu.render.driver import (
+        MAX_WAVEFRONT,
+        REGEN_MAX_SLOTS,
+        regen_plan,
+        regen_spp_chunk,
+    )
 
-    assert regen_max_slots(use_persistent=True, has_noise=True) == 40
-    assert regen_max_slots(use_persistent=True, has_noise=False) == 64
-    assert regen_max_slots(use_persistent=False, has_noise=True) == 64
-    assert regen_max_slots(use_persistent=False, has_noise=False) == 64
-    # VMEM-aware: big resolve tables / image tables shrink the slot budget
-    # (50K prims -> ~5.6 MB double-buffered resolve table).
-    assert regen_max_slots(True, False, n_prims=50000) < 64
-    assert regen_max_slots(True, False, n_prims=50000) >= 4
-    assert regen_max_slots(True, False, img_texels=256 * 512) == 64
-    # The VMEM model follows the ACTUAL tile height (round-3 VERDICT weak
-    # #6): halving rows halves the per-slot log cost, so a constrained
-    # budget affords at least as many slots; doubling rows affords fewer.
-    tight = dict(n_prims=50000, img_texels=256 * 512)
-    assert regen_max_slots(True, False, rows=32, **tight) >= regen_max_slots(
-        True, False, rows=64, **tight
-    )
-    assert regen_max_slots(True, False, rows=128, **tight) <= regen_max_slots(
-        True, False, rows=64, **tight
-    )
-    # rows=0 means DEFAULT_ROWS: identical to the explicit default.
-    assert regen_max_slots(True, True, rows=0) == regen_max_slots(
-        True, True, rows=64
-    )
+    assert regen_plan(90000, 500, 1 << 19) == (1 << 19, 250)
+    wf, chunk = regen_plan(1200 * 800, 100, 1 << 19)
+    assert wf == 1200 * 800 and chunk * 1200 * 800 <= REGEN_MAX_SLOTS * wf
+    assert regen_plan(4000 * 4000, 10, 1 << 19)[0] == MAX_WAVEFRONT
     # Divisor preference: one executable serves every chunk.
     assert regen_spp_chunk(500, 90000, 1 << 19, 64) == 250
     # Multi-device form bounds the per-device ceil share.

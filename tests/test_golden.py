@@ -22,10 +22,9 @@ SEED = 12345
 
 # Scenes deliberately without goldens: rand_spheres_large / quad_field are
 # 10K/8K-primitive scale workloads whose CPU renders would dominate the
-# suite's runtime; their correctness is covered by the large-scene oracle
-# tests (tests/test_large_scene.py) and the clustered-vs-dense bit-identity
-# tests (tests/test_persistent_kernel.py), and they share every component
-# with rand_spheres / quads, which are pinned.
+# suite's runtime; the 10K-sphere closest-hit case of
+# tests/test_closest_hit.py covers their intersection, and they share every
+# other component with rand_spheres / quads, which are pinned.
 GOLDEN_EXEMPT = {"rand_spheres_large", "quad_field"}
 
 
@@ -54,13 +53,9 @@ def _load():
         return json.load(f)
 
 
-@pytest.mark.parametrize("name", sorted(set(SCENES) - GOLDEN_EXEMPT))
-def test_golden_stats(name):
-    golden = _load()
-    assert name in golden, f"scene {name} needs a golden entry (or an exemption)"
-    img = _render(name)
-    got = _stats(img)
-    want = golden[name]
+def check_stats(got: dict, want: dict) -> None:
+    """Raise unless render statistics `got` match the pinned `want` (also
+    used by chip_smoke.py to hold a GPU render to the CPU goldens)."""
     # Channel means are Monte-Carlo estimates over ~220K samples: tight.
     np.testing.assert_allclose(got["mean"], want["mean"], rtol=0.02, atol=0.004)
     np.testing.assert_allclose(got["std"], want["std"], rtol=0.05, atol=0.01)
@@ -68,6 +63,13 @@ def test_golden_stats(name):
     np.testing.assert_allclose(
         got["probes"], want["probes"], rtol=0.5, atol=0.12
     )
+
+
+@pytest.mark.parametrize("name", sorted(set(SCENES) - GOLDEN_EXEMPT))
+def test_golden_stats(name):
+    golden = _load()
+    assert name in golden, f"scene {name} needs a golden entry (or an exemption)"
+    check_stats(_stats(_render(name)), golden[name])
 
 
 if __name__ == "__main__":

@@ -118,9 +118,8 @@ def test_fixed_trip_count_matches_while_loop():
     """trace(fixed_trip_count=True) is the SAME estimator as the default
     while_loop — identical radiance for identical keys (dead lanes don't
     change state, so removing the early exit must not change results), with
-    and without the peeled first bounce. Guards the segment-count contract
-    (a fixed loop of max_depth steps after a peel traced one bounce too
-    many once)."""
+    the default and an explicit intersector override. Guards the
+    segment-count contract (one segment per live lane-bounce either way)."""
     from raytracer_tpu.geometry.intersect import intersect_scene
 
     b = SceneBuilder(0)
@@ -134,22 +133,22 @@ def test_fixed_trip_count_matches_while_loop():
     d = jnp.asarray(rng.uniform(-1, 1, (n, 3)).astype(np.float32) - [0, 0.3, 1])
     key = jax.random.PRNGKey(4)
     bg = jnp.asarray((0.7, 0.8, 1.0), jnp.float32)
-    for peel in (None, intersect_scene):
+    for ifn in (None, intersect_scene):
         r_while, s_while = trace(
             scene, o, d, key, bg, max_depth=6, return_stats=True,
-            first_bounce_intersect_fn=peel,
+            intersect_fn=ifn,
         )
         r_fixed, s_fixed = trace(
             scene, o, d, key, bg, max_depth=6, return_stats=True,
-            first_bounce_intersect_fn=peel, fixed_trip_count=True,
+            intersect_fn=ifn, fixed_trip_count=True,
         )
         np.testing.assert_array_equal(np.asarray(r_while), np.asarray(r_fixed))
-        assert int(s_while) == int(s_fixed), (peel, int(s_while), int(s_fixed))
+        assert int(s_while) == int(s_fixed), (ifn, int(s_while), int(s_fixed))
 
 
 def test_regen_jump_nonzero_and_exact_at_pow2_resolution():
-    """When the pixel count divides the Pallas tile (e.g. 128x128), the
-    natural jump n%n_pixels is zero, which would statically bind lanes to
+    """When the pixel count divides the wavefront (e.g. 128x128 into 64K
+    lanes), the natural jump n%n_pixels is zero, which would statically bind lanes to
     pixels (measured 2.7x iteration cost). regen_jump must pick a nonzero
     advance there, and the schedule/fold pair must stay EXACT: a miss-only
     render retires exactly spp * background per pixel."""
@@ -182,11 +181,11 @@ def test_regen_jump_nonzero_and_exact_at_pow2_resolution():
 
 
 def test_fold_log_small_wavefront_exact_counts():
-    """_fold_log at the exact 600x600 shapes where XLA:TPU miscompiled the
-    fused fold (wavefront < n_pixels; see the optimization_barrier note in
-    _fold_log): a schedule-shaped unit log must fold to exactly spp samples
-    per pixel. On CPU this pins the fold's arithmetic; the TPU fusion itself
-    is covered by scripts/check_persistent_tpu.py's counter render."""
+    """_fold_log at 600x600 with a wavefront smaller than the pixel count
+    (the regime where a miscompiled fusion of the chunk-sum with the K-way
+    roll once double-counted samples): a schedule-shaped unit log must fold
+    to exactly spp samples per pixel. chip_smoke.py repeats this check on
+    the GPU."""
     import jax
     import jax.numpy as jnp
 

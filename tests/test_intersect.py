@@ -6,7 +6,7 @@ import jax.numpy as jnp
 
 from raytracer_tpu.geometry.intersect import intersect_scene
 from raytracer_tpu.geometry.scene import SceneBuilder
-from tests.oracle import closest_hit
+from oracle import closest_hit
 
 
 def _random_scene(rng, n_spheres=12, n_quads=6):
@@ -200,7 +200,6 @@ def test_pallas_diff_intersector_value_and_grad_parity():
     kernel runs on stop-gradient inputs, the winner's t is recomputed
     differentiably, so d(sum t)/d(params) must match the dense path's."""
     import jax
-    from jax.experimental.pallas import tpu as pltpu
 
     from raytracer_tpu.geometry.intersect import (
         intersect_scene,
@@ -225,12 +224,14 @@ def test_pallas_diff_intersector_value_and_grad_parity():
         t = jnp.where(rec.hit, rec.t, 0.0)
         return jnp.sum(t * t), rec
 
-    with pltpu.force_tpu_interpret_mode():
-        (v_p, rec_p), g_p = jax.value_and_grad(
-            lambda *a: loss(intersect_scene_pallas_diff, *a),
-            argnums=(0, 1, 2, 3),
-            has_aux=True,
-        )(scene.sph_center, scene.sph_radius, o, d)
+    def kernel_fn(sc, o_, d_):
+        return intersect_scene_pallas_diff(sc, o_, d_, interpret=True)
+
+    (v_p, rec_p), g_p = jax.value_and_grad(
+        lambda *a: loss(kernel_fn, *a),
+        argnums=(0, 1, 2, 3),
+        has_aux=True,
+    )(scene.sph_center, scene.sph_radius, o, d)
     (v_d, rec_d), g_d = jax.value_and_grad(
         lambda *a: loss(intersect_scene, *a), argnums=(0, 1, 2, 3), has_aux=True
     )(scene.sph_center, scene.sph_radius, o, d)

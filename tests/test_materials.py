@@ -7,7 +7,7 @@ import jax.numpy as jnp
 from raytracer_tpu.geometry.intersect import intersect_scene
 from raytracer_tpu.geometry.scene import SceneBuilder
 from raytracer_tpu.materials.materials import UNIFORMS_PER_BOUNCE, shade
-from tests import oracle
+import oracle
 
 
 def _hit_sphere(builder_setup, origin, direction, n=1):

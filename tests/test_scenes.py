@@ -78,11 +78,11 @@ def test_bucketed_scenes_share_shapes_and_executable():
     matched = dict(width=48, spp=4, max_depth=4)
     scene_a, cam_a, set_a = get_scene("perlin", bucket=True, **matched)
     scene_b, cam_b, set_b = get_scene("simple_light", bucket=True, **matched)
-    before = driver._render_regen_fb._cache_size()
+    before = driver.render_regen._cache_size()
     driver.render_image(scene_a, cam_a, set_a)
-    mid = driver._render_regen_fb._cache_size()
+    mid = driver.render_regen._cache_size()
     driver.render_image(scene_b, cam_b, set_b)
-    after = driver._render_regen_fb._cache_size()
+    after = driver.render_regen._cache_size()
     assert mid == before + 1
     assert after == mid  # simple_light reused the perlin executable
 

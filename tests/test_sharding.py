@@ -170,23 +170,6 @@ def test_graft_entry_compiles():
     assert np.isfinite(np.asarray(out)).all()
 
 
-def test_sharded_large_scene_fallback(monkeypatch):
-    """Past LARGE_SCENE_PRIMS the sharded path must not select the persistent
-    kernel / megakernel (documented to OOM/crawl at that scale); it falls
-    back to the size-robust wavefront and still matches the single-device
-    image statistically."""
-    from raytracer_tpu.render import driver
-
-    scene, cam, settings = _tiny()
-    mesh = make_mesh(8, sample_parallel=2)
-    monkeypatch.setattr(driver, "LARGE_SCENE_PRIMS", 1)  # force 'large'
-    img_s = np.asarray(render_image_sharded(scene, cam, settings, mesh, seed=0))
-    img_1 = np.asarray(render_image(scene, cam, settings, seed=1, regenerative=False))
-    np.testing.assert_allclose(
-        img_s.mean((0, 1)), img_1.mean((0, 1)), rtol=0.06, atol=0.02
-    )
-
-
 def test_sharded_samples_per_pass_uneven_spp_raises():
     """spp not divisible by the sample axis has NO valid pass size for the
     pass-based sharded render; the helper must refuse clearly instead of

@@ -9,7 +9,7 @@ from raytracer_tpu.materials.textures import (
     perlin_noise,
     perlin_turbulence,
 )
-from tests import oracle
+import oracle
 
 
 def test_solid_color():

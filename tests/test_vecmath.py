@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from raytracer_tpu.core import vecmath as vm
-from tests import oracle
+import oracle
 
 
 def test_dot_cross_norm(rng):
